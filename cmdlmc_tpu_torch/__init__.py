@@ -1,0 +1,13 @@
+"""cmdlmc_tpu_torch — the cMD/LMC kinetic Monte Carlo engine in PyTorch and CUDA.
+
+A port of ``cmdlmc_tpu`` (the JAX/Pallas package, kept beside it as the
+reference) to PyTorch with hand-written CUDA kernels for NVIDIA Hopper
+(``sm_90a``). Module paths mirror the JAX package's, so
+``cmdlmc_tpu/engine/fused.py`` corresponds to ``cmdlmc_tpu_torch/engine/fused.py``.
+
+The package imports ``torch`` and never ``jax``. Every CUDA kernel has a plain
+PyTorch version beside it in the same module; a wrapper runs the plain version
+only for tensors on the CPU and launches its kernel for tensors on the card.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,126 @@
+"""Periodic simulation cell and minimum-image geometry in PyTorch.
+
+Port of ``cmdlmc_tpu/core/cell.py``:
+
+* cubic minimum image is the closed form ``d - L * round(d / L)``, with
+  ``torch.round`` rounding half to even exactly like ``jnp.round``;
+* triclinic cells use fractional coordinates (h^-1 . d, round, h .) plus the
+  shortest of the 27 surrounding images;
+* ``h`` holds the cell vectors as columns, so cartesian = h @ fractional.
+
+All arithmetic is float32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Offsets of the 27 periodic images around the home cell (triclinic search).
+_IMAGE_SHIFTS = np.array(
+    [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
+    dtype=np.float32,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """A periodic simulation cell: ``h`` (columns are cell vectors), its
+    inverse, and whether the cheap closed-form minimum image applies."""
+
+    h: torch.Tensor
+    h_inv: torch.Tensor
+    orthorhombic: bool = True
+
+    @classmethod
+    def cubic(cls, lengths, box_multiplier=(1, 1, 1), device=None) -> "Cell":
+        """Orthorhombic cell from three box lengths, extended by
+        ``box_multiplier`` for the virtual supercell."""
+        lengths = torch.as_tensor(
+            np.asarray(lengths, np.float32).reshape(3), device=device
+        )
+        lengths = lengths * torch.as_tensor(
+            np.asarray(box_multiplier, np.float32), device=device
+        )
+        return cls(h=torch.diag(lengths), h_inv=torch.diag(1.0 / lengths),
+                   orthorhombic=True)
+
+    @classmethod
+    def triclinic(cls, box_vectors, box_multiplier=(1, 1, 1),
+                  device=None) -> "Cell":
+        """General cell from 9 values or a (3, 3) array whose rows are the
+        cell vectors (the reference's input convention)."""
+        v = torch.as_tensor(
+            np.asarray(box_vectors, np.float32).reshape(3, 3), device=device
+        )
+        v = v * torch.as_tensor(
+            np.asarray(box_multiplier, np.float32), device=device
+        )[:, None]
+        h = v.T.contiguous()
+        # numpy's float32 LAPACK inverse rounds like jnp.linalg.inv
+        h_inv = torch.from_numpy(np.linalg.inv(h.cpu().numpy())).to(h.device)
+        return cls(h=h, h_inv=h_inv, orthorhombic=False)
+
+    @classmethod
+    def from_parameter_array(cls, pbc, box_multiplier=(1, 1, 1),
+                             device=None) -> "Cell":
+        """3 values -> cubic, 9 values -> triclinic."""
+        pbc = np.asarray(pbc, dtype=np.float32).ravel()
+        if pbc.size == 3:
+            return cls.cubic(pbc, box_multiplier, device)
+        if pbc.size == 9:
+            return cls.triclinic(pbc, box_multiplier, device)
+        raise ValueError(f"Expected 3 or 9 box parameters, got {pbc.size}")
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root. torch's CPU ``sqrt`` may be one
+    ulp off, while the JAX package, numpy and CUDA's ``sqrtf`` round
+    correctly; a float64 square root rounded to float32 is correctly rounded."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def _rowvec_matmul_t(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x @ m.T for a 3x3 ``m``, summed in index order with one rounding per
+    operation, as XLA's CPU dot does (torch's matmul fuses multiply-adds)."""
+    cols = [x[..., 0] * m[i, 0] + x[..., 1] * m[i, 1] + x[..., 2] * m[i, 2]
+            for i in range(3)]
+    return torch.stack(cols, dim=-1)
+
+
+def minimum_image(cell: Cell, dvec: torch.Tensor) -> torch.Tensor:
+    """Wrap raw difference vectors (trailing dim 3) into the minimum image."""
+    if cell.orthorhombic:
+        lengths = torch.diagonal(cell.h)
+        return dvec - lengths * torch.round(dvec / lengths)
+    frac = _rowvec_matmul_t(dvec, cell.h_inv)
+    frac = frac - torch.round(frac)
+    base = _rowvec_matmul_t(frac, cell.h)
+    shifts = _rowvec_matmul_t(
+        torch.as_tensor(_IMAGE_SHIFTS, device=base.device), cell.h)
+    candidates = base[..., None, :] + shifts  # (..., 27, 3)
+    norms = torch.sum(candidates * candidates, dim=-1)
+    best = torch.argmin(norms, dim=-1)  # first index on ties, like jnp
+    idx = best[..., None, None].expand(*best.shape, 1, 3)
+    return torch.gather(candidates, -2, idx).squeeze(-2)
+
+
+def displacement(cell: Cell, r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Minimum-image displacement r2 - r1."""
+    return minimum_image(cell, r2 - r1)
+
+
+def distance(cell: Cell, r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Minimum-image scalar distance."""
+    d = displacement(cell, r1, r2)
+    return sqrt32(torch.sum(d * d, dim=-1))
+
+
+def pairwise_distances(cell: Cell, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-to-all minimum-image distances of shape (..., len(a), len(b))."""
+    d = displacement(cell, a[..., :, None, :], b[..., None, :, :])
+    return sqrt32(torch.sum(d * d, dim=-1))
