@@ -7,20 +7,29 @@ Phases, each printing as it goes; any failure raises, so the run exits
 nonzero without the final ``ok`` line:
 
 1. environment: torch / CUDA versions, the card, its power limit;
-2. build: every kernel in ``cmdlmc_tpu_torch/csrc/`` with nvcc for sm_90a;
+2. build: every kernel in ``cmdlmc_tpu_torch/csrc/`` with nvcc for sm_90a,
+   one nvcc per source, all at once;
 3. RNG: the CUDA counter hash against the torch hash, bit for bit;
 4. K2 (distance matrices) against its plain PyTorch version;
 5. K1 (streamed event loop) against its plain version, stale off and on;
-6. end to end: ``driver.run_from_config`` on a synthetic 144-site trajectory
-   at the ``bench.py`` scale (96 protons, 16384 replicas, 256-frame blocks),
-   plus a small run held against the same run on the CPU;
-7. with ``--profile`` only: the end-to-end run traced with torch.profiler,
-   fresh and stale rates (device busy and idle time, each kernel's share),
-   and the host's xyz parse timed alone.
+6. K3 (in-kernel-W event loop) against its plain version for the law kinds
+   0-4, against stage 1 + K1 on the same state, at 2-16 warps per block,
+   and the two routes timed at 8, 16 and 128 RNG tiles;
+7. end to end through ``driver.run_from_config`` on synthetic 144-site
+   trajectories: the ``bench.py`` deployment (96 protons, 256-frame blocks)
+   at 16384 replicas (stage 1 + K1) and at 1024 (K3), and the angle
+   deployment of ``tools/bench_fused_variants.py`` (36 P atoms, FermiAngle)
+   at 1024 (K3) and 4096 replicas (stage 1 + K1), each with its own launch
+   counts; before them a small dense and a small angle run are held
+   against the same runs on the CPU;
+8. with ``--profile`` only: the R=16384 end-to-end run traced with
+   torch.profiler, fresh and stale rates (device busy and idle time, each
+   kernel's share), and the host's xyz parse timed alone.
 
 Before the last line it prints one JSON object with each kernel's launch
-count in the end-to-end run, its error against the plain version and both
-times, and the card's name and power limit as ``nvidia-smi`` reports them.
+count in the end-to-end run of its path, its error against the plain
+version, its time, its plain version's time and its bound, and the card's
+name and power limit as ``nvidia-smi`` reports them.
 The last line is ``{"ok": true, "device": {...}}``. Generated inputs and the
 end-to-end run's output go to ``cmdlmc_tpu_torch/_build/smoke/`` inside the
 checkout.
@@ -42,6 +51,21 @@ N_SITES, N_PROTONS, REPLICAS, BLOCK, MAX_EVENTS = 144, 96, 16384, 256, 4
 BOX, FERMI, CUTOFF, BUFFER, DT = 14.5, (0.06, 2.3, 0.1), 3.0, 2.0, 0.5
 PRINT_FREQ = 100  # the main path's launches span up to PRINT_FREQ frames
 WORK = ROOT / "cmdlmc_tpu_torch" / "_build" / "smoke"
+# the angle deployment of tools/bench_fused_variants.py: N // 4 P atoms, each
+# grouped with its 4 nearest O sites, FermiAngle with the bench.py Fermi
+N_P, GROUP, THETA = N_SITES // 4, 4, 1.2
+INKERNEL_REPLICAS = 1024  # 8 RNG tiles of 128: the in-kernel route
+ANGLE_STREAMED_REPLICAS = 4096  # 32 tiles: the streamed route
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit),
+# for the least time the card could take for a kernel's work.
+PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM3
+# Operations per pair (i, j) of one frame: the minimum-image distance is
+# three minimum images (sub, div, rint, mul, sub), three squares, two adds
+# and a square root (21); W adds the cutoff test and the Fermi law (sub,
+# div, exp, add, div), 27 in all.
+PAIRWISE_OPS, W_BUILD_OPS = 21, 27
 
 
 def say(*args):
@@ -72,6 +96,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the float32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sweep_bound(R, B, N, P, events, w_bytes=0.0, extra_flops=0.0,
+                extra_bytes=0.0) -> dict:
+    """Bound of an event-loop sweep over R replicas and B frames that fired
+    `events` events with fresh rates: each rate evaluation is N*N
+    multiply-adds per replica, one per event plus the one that ends each
+    replica-frame, and each event races 2N candidates (a log, a divide and a
+    compare each). Bytes: positions, W where it is read, and the replica
+    state read once and written once."""
+    flops = 2.0 * N * N * (events + R * B) + 6.0 * N * events + extra_flops
+    state = 4.0 * R * (2 * N + 5 * P + 2)  # occ, labels, sites, tlast, db, u, evc
+    nbytes = (4.0 * B * N * 3 + w_bytes + 2 * state + 4.0 * R + 4 * 4.0 * N * 3
+              + extra_bytes)
+    return bound(flops, nbytes)
 
 
 def phase_rng(dev):
@@ -146,7 +193,12 @@ def phase_k2(dev):
         f"plain {plain_ms:.4f} ms")
     if not err <= 2e-4:
         raise AssertionError(f"K2 disagrees with its plain version: {err}")
-    return {"max_abs_err": max(worst, err), "ms": ms, "plain_ms": plain_ms}
+    # no single PyTorch call computes minimum-image distances (torch.cdist
+    # has no periodic images)
+    return {"max_abs_err": max(worst, err), "ms": ms, "plain_ms": plain_ms,
+            **bound(PAIRWISE_OPS * PRINT_FREQ * N_SITES ** 2,
+                    4.0 * PRINT_FREQ * N_SITES * (N_SITES + 3)),
+            "library_ms": None}
 
 
 def _k1_inputs(dev, replicas, frames, n=N_SITES, protons=N_PROTONS, box=BOX,
@@ -252,20 +304,18 @@ def _smallest_margin(w, occ, u, frame_idx, tile_id, rin, kw):
     return best
 
 
-def _partings(args, frame0, box, kw, cap=64):
-    """Step every replica frame by frame through both versions from the plain
-    version's state, and for each replica that parts in a frame (up to `cap`)
-    give (replica, frame, smallest decision margin, decision)."""
-    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
-
-    w, pos, prev, s = args[:4]
-    state = list(args[4:])
+def _partings(w, state0, frame0, kw, step, cap=64):
+    """Step every replica frame by frame through a kernel and its plain
+    version from the plain version's state (``step(f, prev, s, state)``
+    returns both outputs for frame f alone), and for each replica that parts
+    in a frame (up to `cap`) give (replica, frame, smallest decision margin,
+    decision); ``w`` [B, N, N] holds each frame's rate matrix."""
+    prev, s = state0[:2]
+    state = list(state0[2:])
     tile = kw["tile"]
     found = []
     for f in range(w.shape[0]):
-        call = (w[f:f + 1], pos[f:f + 1], prev, s, *state, frame0 + f, box, 0)
-        got = kss.kmc_sweep_streamed(*call, **kw)
-        want = kss.kmc_sweep_streamed_reference(*call, **kw)
+        got, want = step(f, prev, s, state)
         for r in (~_agreeing(got, want)).nonzero()[:, 0].tolist():
             if len(found) < cap:
                 margin, what = _smallest_margin(
@@ -277,36 +327,36 @@ def _partings(args, frame0, box, kw, cap=64):
     return found
 
 
-def _k1_check(label, args, got, want, frame0, box, kw) -> float:
-    """Hold K1's outputs to its plain version's on the same inputs: replicas
-    whose integer state differs at most PARTINGS_PER_REPLICA_FRAME per
-    replica-frame, each parting at a near-tie, then the float state of the
-    agreeing replicas to rtol 1e-5 (disp_base atol 1e-4). Returns the worst
-    float error."""
+def _hold(tag, label, got, want, ev0, n_frames, replay) -> float:
+    """Hold a kernel's outputs to its plain version's on the same inputs:
+    replicas whose integer state differs at most PARTINGS_PER_REPLICA_FRAME
+    per replica-frame, each parting at a near-tie (``replay()`` finds the
+    partings frame by frame), then the float state of the agreeing replicas
+    to rtol 1e-5 (disp_base atol 1e-4). Returns the worst float error."""
     import torch
 
     same = _agreeing(got, want)
     n_diff = int((~same).sum())
-    events = int(want["ev_count"].sum() - args[10].sum())
-    replica_frames = same.numel() * args[0].shape[0]
-    say(f"[k1] {label}: {n_diff} of {same.numel()} replicas differ in integer "
-        f"state ({events} events in the plain run)")
+    events = int(want["ev_count"].sum() - ev0.sum())
+    replica_frames = same.numel() * n_frames
+    say(f"[{tag}] {label}: {n_diff} of {same.numel()} replicas differ in "
+        f"integer state ({events} events in the plain run)")
     if n_diff > PARTINGS_PER_REPLICA_FRAME * replica_frames:
         raise AssertionError(
-            f"K1 {label}: {n_diff} replicas differ, more than "
+            f"{tag} {label}: {n_diff} replicas differ, more than "
             f"{PARTINGS_PER_REPLICA_FRAME} per replica-frame")
     if n_diff:
-        found = _partings(args, frame0, box, kw)
+        found = replay()
         worst_tie = max(m for _, _, m, _ in found) if found else float("inf")
-        say(f"[k1]   frame-by-frame replay: {len(found)} partings; largest "
+        say(f"[{tag}]   frame-by-frame replay: {len(found)} partings; largest "
             f"decision margin among them {worst_tie:.3e} (near-tie bound "
             f"{NEAR_TIE})")
         for r, f, m, what in found[:5]:
-            say(f"[k1]     replica {r}, frame {frame0 + f}: {what}, margin {m:.3e}")
+            say(f"[{tag}]     replica {r}, frame {f}: {what}, margin {m:.3e}")
         if not found or worst_tie >= NEAR_TIE:
-            raise AssertionError(f"K1 {label}: replicas part away from a near-tie")
+            raise AssertionError(f"{tag} {label}: replicas part away from a near-tie")
     if events == 0:
-        raise AssertionError(f"K1 {label}: the comparison fired no events")
+        raise AssertionError(f"{tag} {label}: the comparison fired no events")
     worst = 0.0
     # u_rem is an O(1) draw minus an O(1) integrated rate: near zero its
     # float32 error is absolute, hence the atol beside the rtol
@@ -320,10 +370,25 @@ def _k1_check(label, args, got, want, frame0, box, kw) -> float:
         err = float((a - b).abs().max())
         worst = max(worst, err)
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"K1 {label} {k} differs: max abs {err}")
-    say(f"[k1] {label}: float state of agreeing replicas within tolerance "
+            raise AssertionError(f"{tag} {label} {k} differs: max abs {err}")
+    say(f"[{tag}] {label}: float state of agreeing replicas within tolerance "
         f"(max abs {worst:.3e})")
     return worst
+
+
+def _k1_check(label, args, got, want, frame0, box, kw) -> float:
+    """K1 held to its plain version (``args`` as the sweep takes them)."""
+    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+
+    w, pos = args[:2]
+
+    def step(f, prev, s, state):
+        call = (w[f:f + 1], pos[f:f + 1], prev, s, *state, frame0 + f, box, 0)
+        return (kss.kmc_sweep_streamed(*call, **kw),
+                kss.kmc_sweep_streamed_reference(*call, **kw))
+
+    return _hold("k1", label, got, want, args[10], w.shape[0],
+                 lambda: _partings(w, args[2:], frame0, kw, step))
 
 
 def phase_k1(dev):
@@ -373,29 +438,245 @@ def phase_k1(dev):
     worst = max(worst, _k1_check(
         f"R={REPLICAS} B={PRINT_FREQ} (main path's shape)", args, got, want,
         0, box3, kw))
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    events = int(want["ev_count"].sum() - args[10].sum())
+    b = sweep_bound(REPLICAS, PRINT_FREQ, N_SITES, N_PROTONS, events,
+                    w_bytes=4.0 * PRINT_FREQ * N_SITES ** 2)
+    say(f"[k1] bound {b['bound_ms']:.3f} ms ({b['bound_by']}; {events} events)")
+    # no single PyTorch call runs this event loop
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
+def _k3_law(kind):
+    """The law of each kind at the bench.py site density: Fermi and
+    FermiAngle are bench.py's; the others are set to fire about one event
+    per replica-frame."""
+    from cmdlmc_tpu_torch.rates import laws
+
+    a, b, c = FERMI
+    return {0: lambda: laws.Fermi(a=a, b=b, c=c),
+            1: lambda: laws.Constant(a=0.004),
+            2: lambda: laws.Exponential(a=0.5, b=-2.0),
+            3: lambda: laws.ActivationEnergy(A=0.04, a=1.6, b=0.6, d0=2.0, T=500.0),
+            4: lambda: laws.FermiAngle(a=a, b=b, c=c, theta=THETA)}[kind]()
+
+
+def _k3_inputs(dev, replicas, frames, kind, seed=0):
+    """Positions of a block (and for kind 4 each donor's grouped P atom),
+    a model of the deployment, and random bench-like replica state
+    [prev, s, occ, labels, sites, tlast, disp_base, u, evc]."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.core.cell import Cell
+    from cmdlmc_tpu_torch.engine.lattice import init_replicas
+    from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
+
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(0, BOX, size=(N_SITES, 3)).astype(np.float32)
+    pbase = rng.uniform(0, BOX, size=(N_P, 3)).astype(np.float32)
+    block = (base[None] + rng.normal(scale=0.03, size=(frames, N_SITES, 3))
+             ).astype(np.float32)
+    eblock = (pbase[None] + rng.normal(scale=0.03, size=(frames, N_P, 3))
+              ).astype(np.float32)
+    cell = Cell.cubic([BOX] * 3, device=dev)
+    law = _k3_law(kind).to(dev)
+    pos = torch.from_numpy(block).to(dev)
+    extras = torch.from_numpy(eblock).to(dev)
+    if kind == 4:
+        model = AnglePairRates.from_first_frame(cell, law, CUTOFF, BUFFER,
+                                                pos[0], extras[0], GROUP)
+        pgrp = model.grouped_positions(extras)
+    else:
+        model, pgrp = PairRates(cell, law, CUTOFF, BUFFER), None
+    ens = init_replicas(torch.Generator().manual_seed(seed), replicas, N_SITES,
+                        N_PROTONS, pos[0], device=dev)
+    rep = ens.replicas
+    state = [ens.prev_pos, ens.site_disp, rep.occ, rep.proton_of_site.float(),
+             rep.site_of_proton, rep.t_last_jump, rep.disp_base,
+             rep.clock.u_remaining, rep.clock.event_count]
+    return model, pos, pgrp, state
+
+
+def _k3_call(model, pos, pgrp, state, frame0, **kw):
+    """K3 (or, with plain=True, its plain version) on the card."""
+    from cmdlmc_tpu_torch.ops import kmc_sweep as ks
+
+    plain = kw.pop("plain", False)
+    fn = ks.kmc_sweep_reference if plain else ks.kmc_sweep
+    return fn(pos, *state, ks.law_params_array(model.law), frame0, model.box, 0,
+              pgrp, **kw)
+
+
+def _k3_kw(model, **extra):
+    from cmdlmc_tpu_torch.ops import kmc_sweep as ks
+
+    return dict(kind=ks.law_kind(model.law), tile=128, max_events=MAX_EVENTS,
+                dt=DT, seed=1, cutbuf=model.cutbuf, **extra)
+
+
+def _k3_check(label, model, pos, pgrp, state, got, want, frame0, kw) -> float:
+    """K3 held to its plain version, as K1 is."""
+    from cmdlmc_tpu_torch.ops import kmc_sweep as ks
+
+    def sl(x, f):
+        return None if x is None else x[f:f + 1]
+
+    def step(f, prev, s, st):
+        args = (model, sl(pos, f), sl(pgrp, f), [prev, s, *st], frame0 + f)
+        return _k3_call(*args, **kw), _k3_call(*args, plain=True, **kw)
+
+    w = ks.inkernel_tables(pos, ks.law_params_array(model.law), model.box, pgrp,
+                           kind=kw["kind"], cutbuf=kw["cutbuf"])
+    return _hold("k3", label, got, want, state[8], pos.shape[0],
+                 lambda: _partings(w, state, frame0, kw, step))
+
+
+def phase_k3(dev):
+    """K3 against kmc_sweep_reference: at the in-kernel route's launch shape
+    (R=1024, B=100; kind 0 with bench.py's Fermi law and kind 4 with the
+    angle gate of the variant deployment), timed there; at R=256, B=16 for
+    kinds 1-3. Then K3 against stage 1 + K1 on the same state (kind 0, the
+    two routes' agreement), K3 at 2, 4, 8 and 16 warps per block, and the
+    two routes timed at 8, 16 and 128 RNG tiles."""
+    import ctypes
+
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
+    from cmdlmc_tpu_torch.ops import kmc_sweep as ks
+    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+
+    R, B = INKERNEL_REPLICAS, PRINT_FREQ
+    if not ks.fits_in_shared_memory(N_SITES, dev):
+        raise AssertionError(f"K3 at N={N_SITES} should fit in shared memory")
+    lib, need, optin = build.library(), ctypes.c_int(0), ctypes.c_int(0)
+    for warps in (2, 4, 8, 16):  # the route rule's formula against the kernel's
+        build.check(lib.cmdlmc_kmc_sweep_smem(N_SITES, warps, 0, ctypes.byref(need),
+                                              ctypes.byref(optin)), "smem plan")
+        if need.value != ks.smem_bytes(N_SITES, warps):
+            raise AssertionError(f"smem_bytes disagrees with the kernel at {warps} warps")
+    worst, result = 0.0, {}
+    for kind in (0, 4):
+        model, pos, pgrp, state = _k3_inputs(dev, R, B, kind)
+        kw = _k3_kw(model)
+        ms, got = cuda_ms(lambda: _k3_call(model, pos, pgrp, state, 0, **kw), reps=5)
+        plain_ms, want = cuda_ms(
+            lambda: _k3_call(model, pos, pgrp, state, 0, plain=True, **kw), reps=1)
+        say(f"[k3] kind {kind} R={R} B={B} N={N_SITES} P={N_PROTONS}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        worst = max(worst, _k3_check(f"kind {kind} R={R} B={B}", model, pos,
+                                     pgrp, state, got, want, 0, kw))
+        events = int(want["ev_count"].sum() - state[8].sum())
+        angle_bytes = 4.0 * B * N_SITES * 3 if kind == 4 else 0.0
+        b = sweep_bound(R, B, N_SITES, N_PROTONS, events,
+                        extra_flops=W_BUILD_OPS * B * N_SITES ** 2,
+                        extra_bytes=angle_bytes)
+        say(f"[k3] kind {kind}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+            f"{events} events)")
+        if kind == 0:
+            # no single PyTorch call runs this event loop
+            result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+            k0 = (model, pos, state, kw, got)
+    for kind in (1, 2, 3):
+        model, pos, pgrp, state = _k3_inputs(dev, 256, 16, kind, seed=kind)
+        kw = _k3_kw(model)
+        got = _k3_call(model, pos, pgrp, state, 500, **kw)
+        want = _k3_call(model, pos, pgrp, state, 500, plain=True, **kw)
+        worst = max(worst, _k3_check(f"kind {kind} R=256 B=16", model, pos,
+                                     pgrp, state, got, want, 500, kw))
+    result["max_abs_err"] = worst
+
+    # the two routes on the same state: K3 against stage 1 + K1 (kind 0)
+    model, pos, state, kw, k3_out = k0
+    kw1 = dict(tile=128, max_events=MAX_EVENTS, dt=DT, seed=1)
+    w = kss.dense_tables(model, pos)
+    k1_out = kss.kmc_sweep_streamed(w, pos, *state, 0, model.box, 0, **kw1)
+
+    def step(f, prev, s, st):
+        return (_k3_call(model, pos[f:f + 1], None, [prev, s, *st], f, **kw),
+                kss.kmc_sweep_streamed(w[f:f + 1], pos[f:f + 1], prev, s, *st,
+                                       f, model.box, 0, **kw1))
+
+    w3 = ks.inkernel_tables(pos, ks.law_params_array(model.law), model.box,
+                            kind=0, cutbuf=model.cutbuf)
+    say(f"[routes] max |W of K3's plain build - W of stage 1| = "
+        f"{float((w3 - w).abs().max()):.3e}")
+    _hold("routes", f"K3 vs stage 1 + K1, kind 0 R={R} B={B}", k3_out, k1_out,
+          state[8], B, lambda: _partings(w, state, 0, kw1, step))
+
+    # launch shape: replicas (warps) per block; the results must not move
+    times = {}
+    for warps in (2, 4, 8, 16):
+        t, out = cuda_ms(lambda: _k3_call(model, pos, None, state, 0,
+                                          warps=warps, **kw), reps=5)
+        times[warps] = t
+        same = all(torch.equal(out[k], k3_out[k]) for k in k3_out)
+        if not same:
+            raise AssertionError(f"K3 at {warps} warps per block differs")
+    say(f"[k3] warps per block at R={R} B={B} kind 0: " + ", ".join(
+        f"{w_}: {t:.3f} ms" for w_, t in times.items())
+        + f" (default {ks.WARPS_PER_BLOCK}); results identical")
+
+    # route timing at 8, 16 and 128 RNG tiles, in turns: K3, stage 1 + K1,
+    # both again in the other order
+    for r in (R, 2 * R, REPLICAS):
+        if r == R:
+            model, pos, state = k0[:3]
+        else:
+            model, pos, _, state = _k3_inputs(dev, r, B, 0)
+
+        def inkernel():
+            return _k3_call(model, pos, None, state, 0, **kw)
+
+        def streamed():
+            return kss.kmc_sweep_streamed(kss.dense_tables(model, pos), pos,
+                                          *state, 0, model.box, 0, **kw1)
+
+        a1, _ = cuda_ms(inkernel, reps=3)
+        b1, _ = cuda_ms(streamed, reps=3)
+        b2, _ = cuda_ms(streamed, reps=3)
+        a2, _ = cuda_ms(inkernel, reps=3)
+        say(f"[route] R={r} ({r // 128} tiles) B={B} kind 0: in-kernel K3 "
+            f"{a1:.3f} / {a2:.3f} ms, stage 1 + K1 {b1:.3f} / {b2:.3f} ms")
+    return result
 
 
 def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
-                 stale: bool = False) -> Path:
-    """Synthetic trajectory (seed 0, as bench.py builds it) and an INI."""
+                 stale: bool = False, angle: bool = False) -> Path:
+    """Synthetic trajectory (seed 0, as bench.py builds it) and an INI. With
+    ``angle`` the trajectory also holds N_P P atoms (uniform in the box,
+    jittered like the O sites) and the INI is the angle deployment:
+    AngleTopology grouping GROUP O per P, FermiAngle with theta THETA."""
     import numpy as np
 
     workdir.mkdir(parents=True, exist_ok=True)
-    traj = workdir / f"traj_{frames}.xyz"
+    tag = "angle_" if angle else ""
+    traj = workdir / f"traj_{tag}{frames}.xyz"
     if not traj.exists():
         rng = np.random.RandomState(0)
         base = rng.uniform(0, BOX, size=(N_SITES, 3)).astype(np.float32)
-        jit = (base[None] + rng.normal(scale=0.03, size=(frames, N_SITES, 3))
-               ).astype(np.float32)
+        pbase = rng.uniform(0, BOX, size=(N_P if angle else 0, 3)).astype(np.float32)
+        names = ["O"] * N_SITES + ["P"] * len(pbase)
         lines = []
         for f in range(frames):
-            lines.append(f"{N_SITES}\nframe {f}\n")
-            lines.append("".join(f"O {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in jit[f]))
+            atoms = np.vstack([base, pbase])
+            atoms = (atoms + rng.normal(scale=0.03, size=atoms.shape)).astype(np.float32)
+            lines.append(f"{len(names)}\nframe {f}\n")
+            lines.append("".join(f"{a} {x:.6f} {y:.6f} {z:.6f}\n"
+                                 for a, (x, y, z) in zip(names, atoms)))
         tmp = traj.with_suffix(".tmp")
         tmp.write_text("".join(lines))
         tmp.replace(traj)
-    cfg = workdir / f"run_{frames}_{replicas}{'_stale' if stale else ''}.ini"
+    if angle:
+        topology = f"""type = AngleTopology
+donor_atoms = O
+extra_atoms = P
+group_size = {GROUP}"""
+        law = f"type = FermiAngle\ntheta = {THETA}"
+    else:
+        topology, law = "type = NeighborTopology\ndonor_atoms = O", "type = Fermi"
+    cfg = workdir / f"run_{tag}{frames}_{replicas}{'_stale' if stale else ''}.ini"
     cfg.write_text(f"""[Trajectory]
 filename = {traj}
 time_step = {DT}
@@ -403,12 +684,11 @@ time_step = {DT}
 type = AtomBoxCubic
 periodic_boundaries = {BOX}, {BOX}, {BOX}
 [NeighborTopology]
-type = NeighborTopology
-donor_atoms = O
+{topology}
 cutoff = {CUTOFF}
 buffer = {BUFFER}
 [JumpRate]
-type = Fermi
+{law}
 a = {FERMI[0]}
 b = {FERMI[1]}
 c = {FERMI[2]}
@@ -439,69 +719,114 @@ def parse_rows(text: str):
     return header, rows, perf
 
 
-def phase_end_to_end(card: str):
+def _counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from cmdlmc_tpu_torch.ops import kmc_sweep as ks
+    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+    from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
+
+    return {"kmc_sweep_streamed": kss.kmc_sweep_streamed,
+            "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep}
+
+
+def _small_cuda_vs_cpu(label, cfg):
+    """The same config and initial state on the card and on the CPU (plain
+    versions) must land in the same final state, but for near-ties."""
+    from cmdlmc_tpu_torch import driver
+
+    finals = {}
+    for d in ("cuda", "cpu"):
+        finals[d] = driver.run_from_config(cfg, out=io.StringIO(), device=d).final_states
+    a, b = finals["cuda"].replicas, finals["cpu"].replicas
+    same = ((a.site_of_proton.cpu() == b.site_of_proton).all(dim=1)
+            & (a.clock.event_count.cpu() == b.clock.event_count))
+    n_diff, n = int((~same).sum()), same.numel()
+    say(f"[e2e] small {label} run (N={N_SITES}, R={n}): {n_diff} of {n} "
+        f"replicas end differently on cuda vs cpu; events "
+        f"{int(a.clock.event_count.sum())} vs {int(b.clock.event_count.sum())}")
+    if n_diff > 2 or int(b.clock.event_count.sum()) == 0:
+        raise AssertionError(f"cuda and cpu runs of the small {label} config disagree")
+
+
+def _drive(label, cfg, card, frames, replicas, expect, refuse=()):
+    """One end-to-end run through driver.run_from_config with every launch
+    count set to 0 just before it and read just after; checks the output
+    rows and that the kernels in `expect` launched and those in `refuse`
+    did not. Returns the launch counts."""
     import numpy as np
     import torch
 
     from cmdlmc_tpu_torch import driver
-    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
-    from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 
-    work = WORK
-    # small run: the same config and initial state on the card and on the
-    # CPU (plain versions) must land in the same final state
-    small = write_inputs(work, frames=64, replicas=256)
-    finals = {}
-    for d in ("cuda", "cpu"):
-        buf = io.StringIO()
-        finals[d] = driver.run_from_config(small, out=buf, device=d).final_states
-    a, b = finals["cuda"].replicas, finals["cpu"].replicas
-    same = ((a.site_of_proton.cpu() == b.site_of_proton).all(dim=1)
-            & (a.clock.event_count.cpu() == b.clock.event_count))
-    n_diff = int((~same).sum())
-    say(f"[e2e] small run (N={N_SITES}, R=256, 64 frames): {n_diff} of 256 "
-        f"replicas end differently on cuda vs cpu; events "
-        f"{int(a.clock.event_count.sum())} vs {int(b.clock.event_count.sum())}")
-    if n_diff > 2:
-        raise AssertionError("cuda and cpu runs of the small config disagree")
-
-    cfg = write_inputs(work, frames=1024, replicas=REPLICAS)
+    counters = _counters()
     buf = io.StringIO()
     torch.cuda.synchronize()
-    kss.kmc_sweep_streamed.launches = 0
-    pairwise_cubic.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     sim = driver.run_from_config(cfg, out=buf, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"kmc_sweep_streamed": kss.kmc_sweep_streamed.launches,
-                "pairwise_cubic": pairwise_cubic.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     text = buf.getvalue()
-    (work / "e2e_output.txt").write_text(text)
+    (WORK / f"e2e_output_{label.replace(' ', '_')}.txt").write_text(text)
     header, rows, perf = parse_rows(text)
-    say(f"[e2e] launches in the main run: {launches}")
+    say(f"[e2e] {label}: launches {launches}")
     if not header or header[0].split()[1:8] != [
             "Sweeps", "Time", "MSD_x", "MSD_y", "MSD_z", "Autocorr", "Jumps"]:
-        raise AssertionError(f"bad header: {header}")
+        raise AssertionError(f"{label}: bad header: {header}")
     if not rows or any(len(r) != 7 for r in rows):
-        raise AssertionError("rows missing or not 7 columns")
+        raise AssertionError(f"{label}: rows missing or not 7 columns")
     vals = np.array(rows, dtype=np.float64)
     if not np.isfinite(vals).all():
-        raise AssertionError("non-finite values in the output rows")
+        raise AssertionError(f"{label}: non-finite values in the output rows")
     if not (vals[:, 5] <= N_PROTONS).all() or not (vals[:, 6] > 0).any():
-        raise AssertionError("Autocorr > proton count or no jumps")
+        raise AssertionError(f"{label}: Autocorr > proton count or no jumps")
     if not perf:
-        raise AssertionError("no '# perf:' line")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+        raise AssertionError(f"{label}: no '# perf:' line")
+    if min(launches[k] for k in expect) <= 0 or any(launches[k] for k in refuse):
+        raise AssertionError(
+            f"{label}: expected launches of {expect} and none of {refuse}, "
+            f"got {launches}")
     ev = sim.final_states.replicas.clock.event_count
-    say(f"[e2e] {len(rows)} rows, frames {int(vals[0, 0])}..{int(vals[-1, 0])}, "
-        f"last Autocorr {vals[-1, 5]:.2f} Jumps {vals[-1, 6]:.2f}; "
-        f"{int(ev.sum())} events in total")
-    say(f"[e2e] {perf[0]}")
-    say(f"[e2e] wall {wall:.2f} s for 1024 frames x {REPLICAS} replicas x "
-        f"{N_SITES} sites ({card})")
+    say(f"[e2e] {label}: {len(rows)} rows, frames {int(vals[0, 0])}.."
+        f"{int(vals[-1, 0])}, last Autocorr {vals[-1, 5]:.2f} Jumps "
+        f"{vals[-1, 6]:.2f}; {int(ev.sum())} events in total")
+    say(f"[e2e] {label}: {perf[0]}")
+    say(f"[e2e] {label}: wall {wall:.2f} s for {frames} frames x {replicas} "
+        f"replicas x {N_SITES} sites ({card})")
     return launches
+
+
+def phase_end_to_end(card: str):
+    """Two small runs (dense and angle) held against the CPU, then the
+    deployments end to end on the card: bench.py's at R=16384 (stage 1 +
+    K1, the main path) and at R=1024 (K3), and the angle deployment at
+    R=1024 (K3, law kind 4) and R=4096 (stage 1 with the angle W + K1)."""
+    _small_cuda_vs_cpu("dense", write_inputs(WORK, frames=64, replicas=256))
+    _small_cuda_vs_cpu("angle", write_inputs(WORK, frames=64, replicas=256,
+                                             angle=True))
+    paths = {}
+    paths["dense R=16384"] = _drive(
+        "dense R=16384", write_inputs(WORK, frames=1024, replicas=REPLICAS),
+        card, 1024, REPLICAS, expect=("kmc_sweep_streamed", "pairwise_cubic"),
+        refuse=("kmc_sweep",))
+    paths["dense R=1024"] = _drive(
+        "dense R=1024", write_inputs(WORK, frames=1024, replicas=INKERNEL_REPLICAS,
+                                     sweeps=512),
+        card, 512, INKERNEL_REPLICAS, expect=("kmc_sweep",),
+        refuse=("kmc_sweep_streamed", "pairwise_cubic"))
+    paths["angle R=1024"] = _drive(
+        "angle R=1024", write_inputs(WORK, frames=512, replicas=INKERNEL_REPLICAS,
+                                     angle=True),
+        card, 512, INKERNEL_REPLICAS, expect=("kmc_sweep",),
+        refuse=("kmc_sweep_streamed",))
+    paths["angle R=4096"] = _drive(
+        "angle R=4096", write_inputs(WORK, frames=512,
+                                     replicas=ANGLE_STREAMED_REPLICAS, angle=True),
+        card, 512, ANGLE_STREAMED_REPLICAS,
+        expect=("kmc_sweep_streamed", "pairwise_cubic"), refuse=("kmc_sweep",))
+    return paths
 
 
 def _union_us(intervals) -> float:
@@ -608,20 +933,29 @@ def main() -> int:
     phase_rng(dev)
     k2 = phase_k2(dev)
     k1 = phase_k1(dev)
-    launches = phase_end_to_end(card)
+    k3 = phase_k3(dev)
+    paths = phase_end_to_end(card)
     if opts.profile:
         phase_profile(card)
 
+    # each kernel's launches in the end-to-end run of its own path: K1 and
+    # K2 on the main path (R=16384), K3 on the in-kernel route (R=1024)
+    main_path, inkernel_path = paths["dense R=16384"], paths["dense R=1024"]
     kernels = [
         {"name": "kmc_sweep_streamed", "route": "cuda",
          "source": "cmdlmc_tpu_torch/csrc/kmc_sweep_streamed.cu",
          "replaces": "cmdlmc_tpu/ops/kmc_sweep_streamed.py:628",
-         "launches": launches["kmc_sweep_streamed"], **k1},
+         "launches": main_path["kmc_sweep_streamed"], **k1},
         {"name": "pairwise_cubic", "route": "cuda",
          "source": "cmdlmc_tpu_torch/csrc/pairwise.cu",
          "replaces": "cmdlmc_tpu/ops/pairwise.py:55",
-         "launches": launches["pairwise_cubic"], **k2},
+         "launches": main_path["pairwise_cubic"], **k2},
+        {"name": "kmc_sweep", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/kmc_sweep.cu",
+         "replaces": "cmdlmc_tpu/ops/kmc_sweep.py:690",
+         "launches": inkernel_path["kmc_sweep"], **k3},
     ]
+    say(f"[e2e] launches by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ from cmdlmc_tpu_torch.core.cell import Cell
 from cmdlmc_tpu_torch.engine.clock import ClockState
 from cmdlmc_tpu_torch.engine.lattice import EnsembleState, ReplicaState
 from cmdlmc_tpu_torch.rates import laws
-from cmdlmc_tpu_torch.topo.models import PairRates
+from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -63,6 +63,9 @@ def law_from_fields(law, device="cpu"):
     cls = laws.LAW_REGISTRY.get(type(law).__name__)
     if cls is None:
         raise NotImplementedError(f"law {type(law).__name__} is not ported yet")
+    missing = [n for n in cls.param_names if not hasattr(law, n)]
+    if missing:
+        raise ValueError(f"law {type(law).__name__} lacks fields {missing}")
     return cls(**{n: float(np.asarray(getattr(law, n))) for n in cls.param_names}).to(device)
 
 
@@ -79,4 +82,16 @@ def pair_rates_from_fields(model, device="cpu") -> PairRates:
         law_from_fields(model.law, device),
         float(np.asarray(model.cutoff)),
         float(np.asarray(model.buffer)),
+    )
+
+
+def angle_pair_rates_from_fields(model, device="cpu") -> AnglePairRates:
+    """The port's AnglePairRates from a JAX ``AnglePairRates``, its O -> P
+    map carried over as it is."""
+    return AnglePairRates(
+        cell_from_fields(model.cell, device),
+        law_from_fields(model.law, device),
+        float(np.asarray(model.cutoff)),
+        float(np.asarray(model.buffer)),
+        _t(model.o_to_p, device, np.int64),
     )

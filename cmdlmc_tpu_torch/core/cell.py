@@ -124,3 +124,20 @@ def pairwise_distances(cell: Cell, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     """All-to-all minimum-image distances of shape (..., len(a), len(b))."""
     d = displacement(cell, a[..., :, None, :], b[..., None, :, :])
     return sqrt32(torch.sum(d * d, dim=-1))
+
+
+def _dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Sum over the trailing 3 of u * v, in index order, one rounding per
+    operation (as XLA sums a 3-element reduction)."""
+    return u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1] + u[..., 2] * v[..., 2]
+
+
+def angle(cell: Cell, r1: torch.Tensor, r2: torch.Tensor, r3: torch.Tensor) -> torch.Tensor:
+    """Angle (radians) at vertex ``r2`` between ``r1`` and ``r3`` under PBC:
+    the angle between the minimum-image vectors r1 - r2 and r3 - r2. The
+    arccos is float32 (torch's and XLA's may differ by an ulp)."""
+    v1 = displacement(cell, r2, r1)
+    v2 = displacement(cell, r2, r3)
+    num = _dot3(v1, v2)
+    den = sqrt32(_dot3(v1, v1) * _dot3(v2, v2))
+    return torch.arccos(torch.clamp(num / den, -1.0, 1.0))

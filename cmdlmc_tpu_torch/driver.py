@@ -1,14 +1,16 @@
 """Simulation driver: config -> object graph -> streamed KMC run.
 
-Port of ``cmdlmc_tpu/driver.py`` for the dense solid-acid path: it
+Port of ``cmdlmc_tpu/driver.py`` for the dense solid-acid paths
+(NeighborTopology and AngleTopology): it
 
-  1. builds the cell, trajectory reader, rate law and ``PairRates`` model on
-     an explicit ``torch.device``,
+  1. builds the cell, trajectory reader, rate law and the ``PairRates`` or
+     ``AnglePairRates`` model (the latter from the first block's extra atoms)
+     on an explicit ``torch.device``,
   2. initializes a batch of replicas from a seeded ``torch.Generator`` (or
      takes a given initial state),
   3. streams trajectory frame blocks to the device on a prefetch thread and
-     advances them with stage 1 + kernel K1 (``engine/fused.py``), cut at
-     every print or reset frame,
+     advances them with kernel K3 or stage 1 + kernel K1, as the route rule
+     of ``engine/fused.py`` picks, cut at every print or reset frame,
   4. prints the reference's '#'-commented column output.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
@@ -56,8 +58,8 @@ def unsupported_reason(cfg: SimulationConfig) -> str | None:
     topo = cfg.topology
     if cfg.trajectory.type_ == "HDF5Trajectory":
         return "HDF5 trajectories are not ported yet (ROADMAP A9)"
-    if topo.type_ != "NeighborTopology":
-        return f"{topo.type_} is not ported yet (ROADMAP A13/A14)"
+    if topo.type_ not in ("NeighborTopology", "AngleTopology"):
+        return f"{topo.type_} is not ported yet (ROADMAP A14)"
     if topo.max_neighbors:
         return "NeighborTopology max_neighbors (top-K) is not ported yet (ROADMAP A14)"
     if cfg.output.jumpstat_bins > 0 or cfg.engine.jumpmatrix_filename:
@@ -116,16 +118,25 @@ def build_law(cfg: SimulationConfig, device=None):
     elif j.type_ == "Constant":
         law = rate_laws.Constant(a=j.a)
     elif j.type_ == "FermiAngle":
-        raise NotImplementedError("FermiAngle is not ported yet (ROADMAP A13)")
+        law = rate_laws.FermiAngle(a=j.a, b=j.b, c=j.c, theta=j.theta)
     else:
         raise ValueError(f"Unknown jump rate type {j.type_!r}")
     return law.to(device)
 
 
-def build_model(cfg: SimulationConfig, cell: Cell, law):
+def build_model(cfg: SimulationConfig, cell: Cell, law, donors0=None,
+                extras0=None):
+    """The rate model; AngleTopology groups its donors with the extra atoms
+    of the first frame (``donors0`` [N, 3], ``extras0`` [M, 3])."""
     topo = cfg.topology
     if topo.type_ == "NeighborTopology" and not topo.max_neighbors:
         return topo_models.PairRates(cell, law, topo.cutoff, topo.buffer)
+    if topo.type_ == "AngleTopology":
+        if extras0 is None:
+            raise ValueError("AngleTopology requires extra_atoms in the topology section")
+        return topo_models.AnglePairRates.from_first_frame(
+            cell, law, topo.cutoff, topo.buffer, donors0, extras0,
+            topo.group_size)
     raise NotImplementedError(unsupported_reason(cfg))
 
 
@@ -204,10 +215,13 @@ class Simulation:
         self.device = resolve_device(device)
         self.cell = build_cell(cfg, self.device)
         self.law = build_law(cfg, self.device)
-        self.model = build_model(cfg, self.cell, self.law)
-        reason = eng_fused.fused_unsupported_reason(self.model, self.cell)
-        if reason:
-            raise NotImplementedError(reason)
+        self.angle = cfg.topology.type_ == "AngleTopology"
+        if self.angle and not cfg.topology.extra_atoms:
+            raise ValueError("AngleTopology requires extra_atoms in the topology section")
+        # AngleTopology's model needs the first frame: built in _stream
+        self.model = None
+        if not self.angle:
+            self._set_model(build_model(cfg, self.cell, self.law))
         self.trajectory = build_trajectory(cfg)
         self.initial_state = initial_state
         # frame subsampling does not compress physical time: each used frame
@@ -227,24 +241,35 @@ class Simulation:
         self._steady_t0 = None
         self._steady_frames0 = 0
 
+    def _set_model(self, model):
+        reason = eng_fused.fused_unsupported_reason(model, self.cell)
+        if reason:
+            raise NotImplementedError(reason)
+        self.model = model
+
     # -- streaming --------------------------------------------------------------
 
     def _blocks(self):
-        """Yield ``(block, donors)`` with the parse and the host->device copy
-        running on the prefetch thread."""
+        """Yield ``(block, donors, extras)`` with the parse and the
+        host->device copy running on the prefetch thread (``extras`` is None
+        without AngleTopology)."""
+        topo = self.cfg.topology
         gen = frame_blocks(
             self.trajectory,
             block_size=self.cfg.engine.block_size,
-            donor_atoms=self.cfg.topology.donor_atoms,
+            donor_atoms=topo.donor_atoms,
+            extra_atoms=topo.extra_atoms if self.angle else None,
             max_frames=self.cfg.engine.sweeps,
         )
 
+        def device_array(x):
+            return torch.from_numpy(
+                np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+
         def staged():
             for block in gen:
-                donors = torch.from_numpy(
-                    np.ascontiguousarray(block.donors, dtype=np.float32)
-                ).to(self.device)
-                yield block, donors
+                extras = device_array(block.extras) if self.angle else None
+                yield block, device_array(block.donors), extras
 
         return prefetch(staged())
 
@@ -255,8 +280,11 @@ class Simulation:
         """Block-streaming engine behind :meth:`observable_rows`."""
         cfg = self.cfg
         states = None
-        for block, donors in self._blocks():
+        for block, donors, extras in self._blocks():
             block_end = block.start + block.n_frames
+            if self.model is None:
+                self._set_model(build_model(cfg, self.cell, self.law,
+                                            donors[0], extras[0]))
             if states is None:
                 n_sites = donors.shape[1]
                 if (cfg.kmc.lattice_size is not None
@@ -293,6 +321,7 @@ class Simulation:
                     tile=cfg.engine.tile,
                     return_truncation=True,
                     stale_rates=cfg.engine.stale_rates,
+                    extras_positions=extras[lo:hi] if self.angle else None,
                 )
                 # stays on the device; fetched once at the end of the run
                 frac = trunc.sum() / (trunc.shape[0] * (sub_end - sub_start))

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads. The build runs at
 first use, goes to ``cmdlmc_tpu_torch/_build/`` and is keyed on a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads at
@@ -26,7 +27,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -38,6 +39,10 @@ _SIGNATURES = {
         [_P] * 14 + [_I] * 9 + [_F, ctypes.c_uint32, _F, _F, _F, _P, _I]
     ),
     "cmdlmc_kmc_sweep_w_in_smem": [_I, _I, ctypes.POINTER(_I)],
+    "cmdlmc_kmc_sweep": (
+        [_P] * 14 + [_I] * 10 + [_F, ctypes.c_uint32] + [_F] * 10 + [_P, _I]
+    ),
+    "cmdlmc_kmc_sweep_smem": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "cmdlmc_rng_fill": [_P, _I, _I, _P, _P, _P, _I],
 }
 
@@ -66,6 +71,42 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(out: Path) -> str:
+    """One nvcc per source, all at once, then one link; returns the log."""
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    log = "".join(logs)
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *(str(o) for o in objs)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never load halves
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log}")
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
@@ -77,14 +118,7 @@ def library() -> ctypes.CDLL:
     log = ""
     built = not out.exists()
     if built:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)  # atomic: concurrent builders never load halves
+        log = _compile_and_link(out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

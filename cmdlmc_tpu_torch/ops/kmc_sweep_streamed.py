@@ -3,7 +3,8 @@
 Port of ``cmdlmc_tpu/ops/kmc_sweep_streamed.py`` in rows semantics
 (``layout="rows"``, ``pack=1``) for orthorhombic cells, with and without
 ``stale`` rates. Stage 1 (:func:`dense_tables`) builds the per-frame rate
-matrices W [B, N, N] with ``PairRates.shared``; stage 2 advances every
+matrices W [B, N, N] with the model's ``shared`` (``PairRates`` or
+``AnglePairRates``, whose W is asymmetric); stage 2 advances every
 replica through those frames: the CUDA kernel ``csrc/kmc_sweep_streamed.cu``
 for tensors on the card, :func:`kmc_sweep_streamed_reference` for tensors on
 the CPU. Jump statistics, the jump matrix and triclinic cells wait for
@@ -26,12 +27,14 @@ import torch.nn.functional as F
 from cmdlmc_tpu_torch.ops import build, rng
 
 
-def dense_tables(model, positions_block: torch.Tensor) -> torch.Tensor:
+def dense_tables(model, positions_block: torch.Tensor,
+                 extras_block: torch.Tensor | None = None) -> torch.Tensor:
     """Stage 1: per-frame masked rate matrices W [B, N, N] for a block of
-    donor positions [B, N, 3] (K2 supplies the distances on the card)."""
+    donor positions [B, N, 3] and, for AngleTopology, the extra atoms'
+    positions [B, M, 3] (K2 supplies the distances on the card)."""
     from cmdlmc_tpu_torch.topo.models import Frame
 
-    return model.shared(Frame(donors=positions_block)).W
+    return model.shared(Frame(donors=positions_block, extras=extras_block)).W
 
 
 def _outputs(occ, labels, sites, tlast, disp_base, u_rem, ev_count,

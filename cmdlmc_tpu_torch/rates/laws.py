@@ -1,13 +1,15 @@
 """Jump-rate laws as ``nn.Module``s with float32 parameter buffers.
 
-Port of ``cmdlmc_tpu/rates/laws.py`` (FermiAngle waits for the angle family,
-ROADMAP A13). Each law evaluates elementwise with the same operation order as
-the JAX law, so both round alike. Units: distances in Å, rates in fs^-1,
-temperatures in K, activation energies in eV.
+Port of ``cmdlmc_tpu/rates/laws.py``. Each law evaluates elementwise with the
+same operation order as the JAX law, so both round alike. Every law takes an
+optional angle (radians), which only FermiAngle reads. Units: distances in Å,
+angles in radians, rates in fs^-1, temperatures in K, activation energies in
+eV.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -17,7 +19,9 @@ KB_EV_PER_K = 8.617333262e-5  # Boltzmann constant, eV / K
 
 
 class _Law(nn.Module):
-    """Stores each named parameter as a float32 scalar buffer."""
+    """Stores each named parameter as a float32 scalar buffer, and keeps the
+    same float32 values on the host in ``host_params`` (read by the kernels'
+    launches without a device sync)."""
 
     param_names: tuple[str, ...] = ()
 
@@ -33,6 +37,7 @@ class _Law(nn.Module):
             self.register_buffer(
                 name, torch.tensor(float(params[name]), dtype=torch.float32)
             )
+        self.host_params = {n: np.float32(params[n]) for n in self.param_names}
 
     def extra_repr(self) -> str:
         return ", ".join(
@@ -45,8 +50,18 @@ class Fermi(_Law):
 
     param_names = ("a", "b", "c")
 
-    def forward(self, distance: torch.Tensor) -> torch.Tensor:
+    def forward(self, distance: torch.Tensor, angle=None) -> torch.Tensor:
         return self.a / (1.0 + torch.exp((distance - self.b) / self.c))
+
+
+class FermiAngle(_Law):
+    """Fermi rate gated to zero below an angle threshold θ (radians)."""
+
+    param_names = ("a", "b", "c", "theta")
+
+    def forward(self, distance: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+        fermi = self.a / (1.0 + torch.exp((distance - self.b) / self.c))
+        return torch.where(angle < self.theta, 0.0, fermi)
 
 
 class ActivationEnergy(_Law):
@@ -55,7 +70,7 @@ class ActivationEnergy(_Law):
 
     param_names = ("A", "a", "b", "d0", "T")
 
-    def forward(self, distance: torch.Tensor) -> torch.Tensor:
+    def forward(self, distance: torch.Tensor, angle=None) -> torch.Tensor:
         dd = distance - self.d0
         # guard the 1/dd^2 pole: at d == d0 the energy is exactly zero
         safe = torch.where(torch.abs(dd) > 1e-6, dd, 1e-6)
@@ -71,7 +86,7 @@ class Exponential(_Law):
 
     param_names = ("a", "b")
 
-    def forward(self, distance: torch.Tensor) -> torch.Tensor:
+    def forward(self, distance: torch.Tensor, angle=None) -> torch.Tensor:
         return self.a * torch.exp(self.b * distance)
 
 
@@ -80,13 +95,14 @@ class Constant(_Law):
 
     param_names = ("a",)
 
-    def forward(self, distance: torch.Tensor) -> torch.Tensor:
+    def forward(self, distance: torch.Tensor, angle=None) -> torch.Tensor:
         return self.a.expand(distance.shape)
 
 
 LAW_REGISTRY = {
     "Constant": Constant,
     "Fermi": Fermi,
+    "FermiAngle": FermiAngle,
     "ActivationEnergy": ActivationEnergy,
     "AE": ActivationEnergy,
     "Exponential": Exponential,

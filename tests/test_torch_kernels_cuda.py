@@ -12,10 +12,11 @@ import torch
 
 from cmdlmc_tpu_torch.core.cell import Cell
 from cmdlmc_tpu_torch.engine.lattice import init_replicas
+from cmdlmc_tpu_torch.ops import kmc_sweep as ks
 from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
-from cmdlmc_tpu_torch.rates.laws import Fermi
-from cmdlmc_tpu_torch.topo.models import PairRates
+from cmdlmc_tpu_torch.rates.laws import Fermi, FermiAngle
+from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +101,68 @@ def test_wrappers_refuse_bad_cuda_inputs(dev):
     with pytest.raises(ValueError, match="float32"):
         pairwise_cubic(pos.double(), model.box)
     assert kss.kmc_sweep_streamed.launches == before
+
+
+def _k3_model(dev, kind, pos, n_p=16, box=10.0):
+    """Fermi (kind 0) PairRates, or FermiAngle (kind 4) AnglePairRates with
+    random P atoms, and each donor's grouped P positions."""
+    cell = Cell.cubic([box] * 3, device=dev)
+    if kind == 0:
+        return PairRates(cell, Fermi(a=0.2, b=2.3, c=0.1).to(dev), 3.0, 2.0), None
+    rng = np.random.RandomState(8)
+    p0 = rng.uniform(0, box, size=(n_p, 3)).astype(np.float32)
+    extras = torch.from_numpy(p0[None] + rng.normal(
+        scale=0.05, size=(pos.shape[0], n_p, 3)).astype(np.float32)).to(dev)
+    model = AnglePairRates.from_first_frame(
+        cell, FermiAngle(a=0.2, b=2.3, c=0.1, theta=1.2).to(dev), 3.0, 2.0,
+        pos[0], extras[0], 4)
+    return model, model.grouped_positions(extras)
+
+
+@pytest.mark.parametrize("kind", [0, 4])
+def test_k3_matches_plain_and_is_chunk_invariant(dev, kind):
+    """K3 against its plain version (at most one replica parting, as K1's
+    check) and 12 frames in one launch == 5 + 7; every warps-per-block
+    launch shape gives the same bits."""
+    _, pos, state = _setup(dev)
+    model, pgrp = _k3_model(dev, kind, pos)
+    params = ks.law_params_array(model.law)
+    kw = dict(kind=kind, tile=64, max_events=4, dt=0.5, seed=9, cutbuf=model.cutbuf)
+    whole = ks.kmc_sweep(pos, *state, params, 0, model.box, 0, pgrp, **kw)
+    want = ks.kmc_sweep_reference(pos, *state, params, 0, model.box, 0, pgrp, **kw)
+    same = torch.ones(256, dtype=torch.bool, device=dev)
+    for k in ("occ", "labels", "sites", "ev_count", "trunc"):
+        same &= (whole[k] == want[k]).reshape(256, -1).all(dim=1)
+    assert int((~same).sum()) <= 1
+    assert int(want["ev_count"].sum()) > 0
+    torch.testing.assert_close(whole["u_rem"][same], want["u_rem"][same],
+                               rtol=1e-5, atol=1e-5)
+    sl = (lambda a, b: None) if pgrp is None else (lambda a, b: pgrp[a:b])
+    a = ks.kmc_sweep(pos[:5], *state, params, 0, model.box, 0, sl(0, 5), **kw)
+    keys = ("occ", "labels", "sites", "tlast", "disp_base", "u_rem", "ev_count")
+    b = ks.kmc_sweep(pos[5:], a["prev_pos"], a["site_disp"],
+                     *[a[k] for k in keys], params, 5, model.box, 0, sl(5, 12), **kw)
+    for k in keys:
+        assert torch.equal(whole[k], b[k]), k
+    assert torch.equal(whole["trunc"], a["trunc"] + b["trunc"])
+    for warps in (2, 4, 16):
+        other = ks.kmc_sweep(pos, *state, params, 0, model.box, 0, pgrp,
+                             warps=warps, **kw)
+        for k in keys:
+            assert torch.equal(whole[k], other[k]), (warps, k)
+
+
+def test_k3_refuses_bad_cuda_inputs(dev):
+    """A CUDA tensor reaches K3 or raises: never the plain version."""
+    _, pos, state = _setup(dev)
+    model, _ = _k3_model(dev, 0, pos)
+    params = ks.law_params_array(model.law)
+    kw = dict(kind=0, tile=64, max_events=4, dt=0.5, seed=1, cutbuf=model.cutbuf)
+    before = ks.kmc_sweep.launches
+    bad = list(state)
+    bad[2] = bad[2].double()
+    with pytest.raises(ValueError, match="occ"):
+        ks.kmc_sweep(pos, *bad, params, 0, model.box, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        ks.kmc_sweep(pos, *state, params, 0, model.box, warps=4096, **kw)
+    assert ks.kmc_sweep.launches == before

@@ -7,10 +7,18 @@ lands in the same state as its streamed route (tests/engine/test_streamed.py),
 so the port must match it: Autocorr and Jumps to 1e-5, MSD to rtol 1e-4, and
 the final occupancy, sites and event counts exactly.
 
+The same for an AngleTopology + FermiAngle configuration laid out like
+tests/integration/test_full_pipeline.py (8 P atoms each with 4 O at 1.3 Å,
+12 Å cube, 16 replicas in RNG tiles of 4): the JAX package takes its
+in-kernel-W kernel with the angle gate, the port takes its in-kernel route
+(K3's plain version), with the same bounds. And the route rule as the
+driver applies it.
+
 Also: the port's config loader against the JAX package's on every example
 INI, and an import of the port's driver and CLI that leaves jax out of
 sys.modules."""
 
+import contextlib
 import dataclasses
 import glob
 import io
@@ -26,8 +34,10 @@ import torch
 from cmdlmc_tpu import driver as jdriver
 from cmdlmc_tpu.config.schema import load_config as j_load_config
 from cmdlmc_tpu.engine import lattice as jeng
+from cmdlmc_tpu.io.xyz import write_xyz_frame
 from cmdlmc_tpu_torch import convert, driver as tdriver
 from cmdlmc_tpu_torch.config.schema import load_config as t_load_config
+from cmdlmc_tpu_torch.ops import kmc_sweep as ks
 from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 
@@ -79,20 +89,47 @@ def _recording(cls):
     return Recording
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("slice")
-    rng = np.random.RandomState(0)
-    base = rng.uniform(0, 9.0, size=(32, 3))
-    with open(tmp / "traj.xyz", "w") as f:
-        for i in range(30):
-            pos = base + rng.normal(scale=0.03, size=base.shape)
-            f.write(f"32\nframe {i}\n")
-            for x, y, z in pos:
-                f.write(f"O {x:14.8f} {y:14.8f} {z:14.8f}\n")
-    ini = tmp / "slice.ini"
-    ini.write_text(INI.format(traj=tmp / "traj.xyz"))
+ANGLE_INI = """[Trajectory]
+filename = {traj}
+time_step = 0.4
+[AtomBox]
+type = AtomBoxCubic
+periodic_boundaries = 12.0, 12.0, 12.0
+[NeighborTopology]
+type = AngleTopology
+donor_atoms = O
+extra_atoms = P
+group_size = 4
+cutoff = 3.0
+buffer = 1.0
+[JumpRate]
+type = FermiAngle
+a = 0.06
+b = 2.3
+c = 0.1
+theta = 1.0
+[KMCLattice]
+lattice_size = 32
+proton_number = 8
+donor_atoms = O
+time_step = 0.4
+[Output]
+type = ObservablesOutput
+print_frequency = 1
+reset_frequency = 4
+[Engine]
+replicas = {replicas}
+tile = 4
+seed = 1
+block_size = 10
+backend = fused
+"""
 
+
+def _both_drivers(ini):
+    """Run ``ini`` through the JAX driver and through the port's on the CPU,
+    the port from the JAX driver's own initial state; also count which
+    route each of the port's launches took."""
     jcfg = j_load_config(str(ini))
     jsim = _recording(jdriver.Simulation)(jcfg)
     jbuf = io.StringIO()
@@ -110,8 +147,67 @@ def runs(tmp_path_factory):
     tsim = _recording(tdriver.Simulation)(
         tcfg, device="cpu", initial_state=convert.ensemble_from_numpy(jinit))
     tbuf = io.StringIO()
-    tsim.run(out=tbuf)
+    with _route_counts() as routes:
+        tsim.run(out=tbuf)
+    tsim.routes = dict(routes)
     return jsim, jbuf.getvalue(), tsim, tbuf.getvalue()
+
+
+@contextlib.contextmanager
+def _route_counts():
+    """Count calls of the two routes' sweep functions."""
+    counts = {"inkernel": 0, "streamed": 0}
+
+    def counting(fn, name):
+        def wrapped(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ks, "kmc_sweep", counting(ks.kmc_sweep, "inkernel"))
+        mp.setattr(kss, "kmc_sweep_streamed",
+                   counting(kss.kmc_sweep_streamed, "streamed"))
+        yield counts
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice")
+    rng = np.random.RandomState(0)
+    base = rng.uniform(0, 9.0, size=(32, 3))
+    with open(tmp / "traj.xyz", "w") as f:
+        for i in range(30):
+            pos = base + rng.normal(scale=0.03, size=base.shape)
+            f.write(f"32\nframe {i}\n")
+            for x, y, z in pos:
+                f.write(f"O {x:14.8f} {y:14.8f} {z:14.8f}\n")
+    ini = tmp / "slice.ini"
+    ini.write_text(INI.format(traj=tmp / "traj.xyz"))
+    return _both_drivers(ini)
+
+
+def _write_angle_inputs(tmp, replicas, frames=8):
+    """Synthetic solid-acid-like trajectory: 8 'PO4-like' groups, each P
+    with 4 O at 1.3 Å, every atom jittering frame to frame."""
+    traj = tmp / "angle.xyz"
+    if not traj.exists():
+        rng = np.random.RandomState(0)
+        p_pos = rng.uniform(0, 12, size=(8, 3))
+        offsets = np.array([[1.3, 0, 0], [-1.3, 0, 0], [0, 1.3, 0], [0, -1.3, 0]])
+        base = np.vstack([p_pos, (p_pos[:, None] + offsets[None]).reshape(-1, 3)])
+        names = ["P"] * 8 + ["O"] * 32
+        with open(traj, "w") as f:
+            for _ in range(frames):
+                write_xyz_frame(f, names, base + rng.normal(scale=0.05, size=base.shape))
+    ini = tmp / f"angle_{replicas}.ini"
+    ini.write_text(ANGLE_INI.format(traj=traj, replicas=replicas))
+    return ini
+
+
+@pytest.fixture(scope="module")
+def angle_runs(tmp_path_factory):
+    return _both_drivers(_write_angle_inputs(tmp_path_factory.mktemp("angle"), 16))
 
 
 def _table(text):
@@ -121,15 +217,15 @@ def _table(text):
     return header, rows
 
 
-def test_rows_match_jax(runs):
+def _rows_match(runs, frames):
     jsim, jtext, tsim, ttext = runs
     jh, jrows = _table(jtext)
     th, trows = _table(ttext)
     assert th == jh and len(th) == 1
-    assert len(trows) == len(jrows) == 3
+    assert len(trows) == len(jrows) == len(frames)
     assert all(len(r) == 7 for r in trows)
     assert "# perf:" in ttext
-    assert [r.frame for r in tsim.records] == [r.frame for r in jsim.records] == [0, 10, 20]
+    assert [r.frame for r in tsim.records] == [r.frame for r in jsim.records] == frames
     for t, j in zip(tsim.records, jsim.records):
         assert t.time == pytest.approx(j.time)
         np.testing.assert_allclose(t.autocorr, j.autocorr, atol=1e-5)
@@ -139,7 +235,35 @@ def test_rows_match_jax(runs):
     assert max(r.jumps for r in tsim.records) > 0
 
 
+def test_rows_match_jax(runs):
+    _rows_match(runs, [0, 10, 20])
+
+
+def test_angle_rows_match_jax(angle_runs):
+    _rows_match(angle_runs, list(range(8)))
+    _final_state_matches(angle_runs)
+
+
+def test_route_rule(runs, angle_runs, tmp_path):
+    """Both slices run 4 RNG tiles: every launch takes the in-kernel route,
+    as the JAX package's did. At 16 tiles (64 replicas) the angle
+    configuration takes stage 1 + the streamed sweep."""
+    for r in (runs, angle_runs):
+        routes = r[2].routes
+        assert routes["inkernel"] > 0 and routes["streamed"] == 0, routes
+    cfg = t_load_config(str(_write_angle_inputs(tmp_path, 64, frames=3)))
+    sim = tdriver.Simulation(cfg, device="cpu")
+    with _route_counts() as routes:
+        sim.run(out=io.StringIO())
+    assert routes["streamed"] > 0 and routes["inkernel"] == 0, routes
+    assert int(sim.final_states.replicas.clock.event_count.sum()) > 0
+
+
 def test_final_state_matches_jax(runs):
+    _final_state_matches(runs)
+
+
+def _final_state_matches(runs):
     jsim, _, tsim, _ = runs
     jrep, trep = jsim.final_states.replicas, tsim.final_states.replicas
     np.testing.assert_array_equal(trep.occ.numpy(), np.asarray(jrep.occ))
@@ -150,6 +274,7 @@ def test_final_state_matches_jax(runs):
     assert int(trep.clock.event_count.sum()) > 0
     # CPU tensors never reach the kernels
     assert kss.kmc_sweep_streamed.launches == 0 and pairwise_cubic.launches == 0
+    assert ks.kmc_sweep.launches == 0
 
 
 def test_settings_echo_matches_jax(runs):
@@ -188,7 +313,8 @@ def test_unsupported_features_raise(runs):
 def test_port_imports_no_jax():
     code = (
         "import sys, cmdlmc_tpu_torch.driver, cmdlmc_tpu_torch.cli.mdmc, "
-        "cmdlmc_tpu_torch.convert\n"
+        "cmdlmc_tpu_torch.convert, cmdlmc_tpu_torch.ops.kmc_sweep, "
+        "cmdlmc_tpu_torch.topo.models\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'cmdlmc_tpu'))\n"
         "print(bad)\n"
