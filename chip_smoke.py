@@ -15,16 +15,25 @@ nonzero without the final ``ok`` line:
 6. K3 (in-kernel-W event loop) against its plain version for the law kinds
    0-4, against stage 1 + K1 on the same state, at 2-16 warps per block,
    and the two routes timed at 8, 16 and 128 RNG tiles;
-7. end to end through ``driver.run_from_config`` on synthetic 144-site
-   trajectories: the ``bench.py`` deployment (96 protons, 256-frame blocks)
-   at 16384 replicas (stage 1 + K1) and at 1024 (K3), and the angle
-   deployment of ``tools/bench_fused_variants.py`` (36 P atoms, FermiAngle)
-   at 1024 (K3) and 4096 replicas (stage 1 + K1), each with its own launch
-   counts; before them a small dense and a small angle run are held
-   against the same runs on the CPU;
-8. with ``--profile`` only: the R=16384 end-to-end run traced with
-   torch.profiler, fresh and stale rates (device busy and idle time, each
-   kernel's share), and the host's xyz parse timed alone.
+7. K5 (K-nearest tables) against its plain version at [B=100 and 256,
+   N=144] and [B=64, N=4608], k=8, timed there;
+8. K4 (top-K event loop) against its plain version: TopKPairRates k=8 and
+   HydroniumRates k=4 (ReLU, relaxation time 20, the blend in the loop) at
+   R=4096, B=100, N=144; law kinds 1-3 and a triclinic cell at R=256, B=16;
+   the supercell R=4096, B=16, N=4608, P=3072; timed at both sizes;
+9. end to end through ``driver.run_from_config`` on synthetic trajectories:
+   the ``bench.py`` deployment (144 sites, 96 protons, 256-frame blocks) at
+   16384 replicas (stage 1 + K1) and at 1024 (K3), the angle deployment of
+   ``tools/bench_fused_variants.py`` (36 P atoms, FermiAngle) at 1024 (K3)
+   and 4096 replicas (stage 1 + K1), that tool's top-K (k=8) and hydronium
+   (k=4) deployments at 4096 replicas, and ``tools/bench_topk_e2e.py``'s
+   supercell (4608 sites, 3072 protons, 4096 replicas; K5 + K4), each with
+   its own launch counts; before them small dense, angle, top-K and
+   hydronium runs are held against the same runs on the CPU;
+10. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
+   rates) and the top-K supercell run traced with torch.profiler (device
+   busy and idle time, each kernel's share), and the host's xyz parse timed
+   alone.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the end-to-end run of its path, its error against the plain
@@ -56,6 +65,15 @@ WORK = ROOT / "cmdlmc_tpu_torch" / "_build" / "smoke"
 N_P, GROUP, THETA = N_SITES // 4, 4, 1.2
 INKERNEL_REPLICAS = 1024  # 8 RNG tiles of 128: the in-kernel route
 ANGLE_STREAMED_REPLICAS = 4096  # 32 tiles: the streamed route
+# the top-K deployments of tools/bench_fused_variants.py at 4096 replicas:
+# TopKPairRates k=8, and HydroniumRates k=4 with a ReLU transformation
+# (a, b, d0, left, right) and the residence-time blend
+TOPK_REPLICAS, TOPK_K, HYD_K = 4096, 8, 4
+RELU, RELAX = (0.5, 2.2, 2.2, 2.0, 3.3), 20.0
+# tools/bench_topk_e2e.py's supercell: 32x the sites at bench.py's density,
+# frames a random walk of 0.004 A per frame and coordinate
+SC_SITES, SC_PROTONS, SC_REPLICAS, SC_DRIFT = 4608, 3072, 4096, 0.004
+SC_BOX = BOX * (SC_SITES / N_SITES) ** (1.0 / 3.0)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit),
 # for the least time the card could take for a kernel's work.
@@ -304,27 +322,31 @@ def _smallest_margin(w, occ, u, frame_idx, tile_id, rin, kw):
     return best
 
 
-def _partings(w, state0, frame0, kw, step, cap=64):
+def _partings(n_frames, state0, step, margin, keys=STATE_KEYS, cap=64):
     """Step every replica frame by frame through a kernel and its plain
     version from the plain version's state (``step(f, prev, s, state)``
-    returns both outputs for frame f alone), and for each replica that parts
-    in a frame (up to `cap`) give (replica, frame, smallest decision margin,
-    decision); ``w`` [B, N, N] holds each frame's rate matrix."""
+    returns both outputs for frame f alone; ``state`` in the order of
+    ``keys``), and for each replica that parts in a frame (up to `cap`) give
+    (replica, frame, smallest decision margin, decision) from
+    ``margin(f, state, r)``."""
     prev, s = state0[:2]
     state = list(state0[2:])
-    tile = kw["tile"]
     found = []
-    for f in range(w.shape[0]):
+    for f in range(n_frames):
         got, want = step(f, prev, s, state)
         for r in (~_agreeing(got, want)).nonzero()[:, 0].tolist():
             if len(found) < cap:
-                margin, what = _smallest_margin(
-                    w[f], state[0][r], state[5][r], frame0 + f, r // tile,
-                    r % tile, kw)
-                found.append((r, f, margin, what))
+                found.append((r, f, *margin(f, state, r)))
         prev, s = want["prev_pos"], want["site_disp"]
-        state = [want[k] for k in STATE_KEYS]
+        state = [want[k] for k in keys]
     return found
+
+
+def _dense_margin(w, frame0, kw):
+    """``margin`` of :func:`_partings` for the dense loop over W [B, N, N]."""
+    tile = kw["tile"]
+    return lambda f, st, r: _smallest_margin(w[f], st[0][r], st[5][r],
+                                             frame0 + f, r // tile, r % tile, kw)
 
 
 def _hold(tag, label, got, want, ev0, n_frames, replay) -> float:
@@ -360,9 +382,12 @@ def _hold(tag, label, got, want, ev0, n_frames, replay) -> float:
     worst = 0.0
     # u_rem is an O(1) draw minus an O(1) integrated rate: near zero its
     # float32 error is absolute, hence the atol beside the rtol
-    for k, rtol, atol in (("u_rem", 1e-5, 1e-5), ("tlast", 1e-5, 1e-5),
-                          ("disp_base", 0.0, 1e-4), ("site_disp", 1e-5, 1e-5),
-                          ("prev_pos", 0.0, 0.0)):
+    floats = [("u_rem", 1e-5, 1e-5), ("tlast", 1e-5, 1e-5),
+              ("disp_base", 0.0, 1e-4), ("site_disp", 1e-5, 1e-5),
+              ("prev_pos", 0.0, 0.0)]
+    if "tlast_site" in want:
+        floats.append(("tlast_site", 1e-5, 1e-5))
+    for k, rtol, atol in floats:
         if k in ("site_disp", "prev_pos"):  # shared by all replicas
             a, b = got[k], want[k]
         else:
@@ -388,7 +413,8 @@ def _k1_check(label, args, got, want, frame0, box, kw) -> float:
                 kss.kmc_sweep_streamed_reference(*call, **kw))
 
     return _hold("k1", label, got, want, args[10], w.shape[0],
-                 lambda: _partings(w, args[2:], frame0, kw, step))
+                 lambda: _partings(w.shape[0], args[2:], step,
+                                   _dense_margin(w, frame0, kw)))
 
 
 def phase_k1(dev):
@@ -529,7 +555,8 @@ def _k3_check(label, model, pos, pgrp, state, got, want, frame0, kw) -> float:
     w = ks.inkernel_tables(pos, ks.law_params_array(model.law), model.box, pgrp,
                            kind=kw["kind"], cutbuf=kw["cutbuf"])
     return _hold("k3", label, got, want, state[8], pos.shape[0],
-                 lambda: _partings(w, state, frame0, kw, step))
+                 lambda: _partings(pos.shape[0], state, step,
+                                   _dense_margin(w, frame0, kw)))
 
 
 def phase_k3(dev):
@@ -603,7 +630,7 @@ def phase_k3(dev):
     say(f"[routes] max |W of K3's plain build - W of stage 1| = "
         f"{float((w3 - w).abs().max()):.3e}")
     _hold("routes", f"K3 vs stage 1 + K1, kind 0 R={R} B={B}", k3_out, k1_out,
-          state[8], B, lambda: _partings(w, state, 0, kw1, step))
+          state[8], B, lambda: _partings(B, state, step, _dense_margin(w, 0, kw1)))
 
     # launch shape: replicas (warps) per block; the results must not move
     times = {}
@@ -642,59 +669,359 @@ def phase_k3(dev):
     return result
 
 
+def _jitter_block(n, frames, box, seed=0):
+    """bench.py's frames: uniform sites, each frame jittered by 0.03 A."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(0, box, size=(n, 3)).astype(np.float32)
+    return (base[None] + rng.normal(scale=0.03, size=(frames, n, 3))).astype(np.float32)
+
+
+def _walk_block(n, frames, box, seed=0):
+    """tools/bench_topk_e2e.py's frames: uniform sites plus a random walk of
+    SC_DRIFT per frame and coordinate."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(0, box, size=(n, 3)).astype(np.float32)
+    walk = np.cumsum(rng.normal(scale=SC_DRIFT, size=(frames, n, 3)).astype(np.float32),
+                     axis=0)
+    return (base[None] + walk).astype(np.float32)
+
+
+CUTBUF = CUTOFF + BUFFER  # 5.0, exact in float32
+
+
+def knn_ops(n: int) -> float:
+    """K5's least operations per frame: each unordered pair's distance
+    (d(i,j) = d(j,i)) and cutoff test, and one compare per ordered pair to
+    keep the k nearest of each column."""
+    return n * (n - 1) / 2 * (PAIRWISE_OPS + 1) + n * (n - 1)
+
+
+def phase_k5(dev):
+    """K5 against knn_block_tables_reference at k=8: at the top-K path's
+    launch shape [PRINT_FREQ, 144], at [256, 144] and at the supercell's
+    [64, 4608]. Indices equal, except where the two candidates' distances lie
+    within an ulp of each other; distances within an ulp. Timed at each
+    shape."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables, knn_block_tables_reference
+
+    k, worst, result = TOPK_K, 0.0, {}
+    for b, n, box in ((PRINT_FREQ, N_SITES, BOX), (256, N_SITES, BOX),
+                      (64, SC_SITES, SC_BOX)):
+        block = _walk_block(n, b, box) if n == SC_SITES else _jitter_block(n, b, box)
+        pos = torch.from_numpy(block).to(dev)
+        box3 = (box,) * 3
+        ms, (gd, gi) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=5)
+        plain_ms, (wd, wi) = cuda_ms(
+            lambda: knn_block_tables_reference(pos, box3, CUTBUF, k), reps=1)
+        parted = (gi != wi).nonzero().tolist()
+        for fb, s, j in parted[:64]:  # a parting must be a tie within an ulp
+
+            def dist(i):
+                d = pos[fb, i] - pos[fb, j]
+                d = d - torch.tensor(box3, device=dev) * torch.round(d / box)
+                return float(torch.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]))
+
+            a, c = dist(int(gi[fb, s, j])), dist(int(wi[fb, s, j]))
+            if abs(a - c) > 2.4e-7 * max(a, c):
+                raise AssertionError(f"K5 [{b},{n}] parts at ({fb}, {s}, {j}) "
+                                     f"away from a tie: {a} vs {c}")
+        err = float((gd - wd).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(gd, wd, rtol=2.4e-7, atol=0):
+            raise AssertionError(f"K5 [{b},{n}] distances differ by more than an ulp: {err}")
+        b_ = bound(b * knn_ops(n), 4.0 * b * n * 3 + 8.0 * b * k * n)
+        say(f"[k5] [B={b}, N={n}, k={k}]: {len(parted)} index partings (ties within "
+            f"an ulp), max |kernel - plain| distance {err:.3e}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+        if b == PRINT_FREQ:
+            # no single PyTorch call computes it: torch.cdist has no periodic
+            # images and torch.topk no first-lowest-index tie rule
+            result = {"ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+    result["max_abs_err"] = worst
+    return result
+
+
+TOPK_STATE_KEYS = ("occ", "labels", "sites", "tlast", "tlast_site", "disp_base",
+                   "u_rem", "ev_count")
+TRICLINIC_VECTORS = ((BOX, 0.0, 0.0), (0.2 * BOX, BOX, 0.0), (0.15 * BOX, 0.1 * BOX, BOX))
+
+
+def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
+    """A top-K model ("topk": TopKPairRates k=8 with law kind `kind`;
+    "hydronium": HydroniumRates k=4, ReLU, the blend; "supercell": the
+    TopKPairRates of tools/bench_topk_e2e.py), a block of its frames, its
+    stage-1 tables, random replica state [prev, s, occ, labels, sites, tlast,
+    tlast_site, disp_base, u, evc] and the sweep's keywords."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.core.cell import Cell
+    from cmdlmc_tpu_torch.engine.lattice import init_replicas
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+    from cmdlmc_tpu_torch.topo.models import HydroniumRates, TopKPairRates
+    from cmdlmc_tpu_torch.topo.transforms import DistanceInterpolator, ReLUTransformation
+
+    n, protons, box = ((SC_SITES, SC_PROTONS, SC_BOX) if name == "supercell"
+                       else (N_SITES, N_PROTONS, BOX))
+    if name == "supercell":
+        block = _walk_block(n, frames, box, seed)
+    elif triclinic:
+        rng = np.random.RandomState(seed)
+        frac = rng.uniform(0, 1, size=(n, 3))
+        base = frac @ np.asarray(TRICLINIC_VECTORS)
+        block = (base[None] + rng.normal(scale=0.03, size=(frames, n, 3))).astype(np.float32)
+    else:
+        block = _jitter_block(n, frames, box, seed)
+    cell = (Cell.triclinic(TRICLINIC_VECTORS, device=dev) if triclinic
+            else Cell.cubic([box] * 3, device=dev))
+    law = _k3_law(kind).to(dev)
+    if name == "hydronium":
+        model = HydroniumRates(
+            cell, law, CUTOFF, BUFFER,
+            transform=ReLUTransformation(a=RELU[0], b=RELU[1], d0=RELU[2],
+                                         left_bound=RELU[3], right_bound=RELU[4]).to(dev),
+            interpolator=DistanceInterpolator(relaxation_time=RELAX).to(dev), k=HYD_K)
+    else:
+        model = TopKPairRates(cell, law, CUTOFF, BUFFER, k=TOPK_K)
+    pos = torch.from_numpy(block).to(dev)
+    blend = ts.has_blend(model)
+    tables = ts.topk_tables(model, pos, precompute_law=not blend)
+    ens = init_replicas(torch.Generator().manual_seed(seed), replicas, n, protons,
+                        pos[0], device=dev)
+    rep = ens.replicas
+    labels = rep.proton_of_site.float()
+    state = [ens.prev_pos, ens.site_disp, rep.occ, labels, rep.site_of_proton,
+             rep.t_last_jump, ts.entry_tlast_site(rep.occ, labels, rep.t_last_jump),
+             rep.disp_base, rep.clock.u_remaining, rep.clock.event_count]
+    tile = ts.pick_tile_topk(replicas, n_sites=n, n_protons=protons, k_cand=model.k)
+    kw = dict(orthorhombic=cell.orthorhombic, kind=kind, tile=tile,
+              max_events=MAX_EVENTS, dt=DT, seed=1, blend=blend)
+    return model, pos, tables, state, kw
+
+
+def _k4_call(model, pos, tables, state, frame0, plain=False, **kw):
+    """K4 (or, with plain=True, its plain version) on the card."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    fn = ts.topk_sweep_reference if plain else ts.topk_sweep
+    return fn(pos, *tables, *state, ts.law_params8(model), frame0, model.geometry,
+              0, **kw)
+
+
+def _topk_margin(model, tab, st, r, frame_idx, kw):
+    """Replay replica r's event iterations of one frame the plain way over
+    that frame's tables and return the smallest relative margin of any
+    decision (the clock test, the gap between the best two slots and
+    between the best two sites) and its name."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import rng
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    td, ti, rs = tab
+    n_k, n = td.shape
+    occ, tls, u = st[0][r:r + 1].clone(), st[4][r:r + 1].clone(), st[6][r]
+    dev, f32 = occ.device, torch.float32
+    tile_id, rin = r // kw["tile"], r % kw["tile"]
+    dt = torch.tensor(kw["dt"], dtype=f32, device=dev)
+    frame_time = torch.tensor(float(frame_idx), dtype=f32, device=dev) * dt
+    p = ts.law_params8(model).to(dev)
+    phase = torch.zeros((), dtype=f32, device=dev)
+    best = (float("inf"), "none")
+
+    def race(vals, ev, salt, width):
+        key = rng.mix_key(kw["seed"], tile_id, frame_idx, ev, salt).to(dev)
+        e = 0.0 - torch.log(rng.u01_counter(
+            key, rin * width + torch.arange(width, device=dev)))
+        v = torch.where(vals > 0, vals / e, 0.0)  # as the plain version races
+        top = torch.topk(v, 2).values
+        return int(torch.argmax(v)), float((top[0] - top[1]) / top[0])
+
+    for ev in range(kw["max_events"]):
+        rates = ts.candidate_rates(td, ti, rs, occ, tls, frame_time, p,
+                                   kind=kw["kind"], blend=kw["blend"])
+        sums, total = ts.slot_totals(rates)
+        budget = total[0] * (dt - phase)
+        if budget > 0:
+            best = min(best, (float(abs(u - budget) / budget), f"clock, event {ev}"))
+        if not (u <= budget and budget > 0):
+            break
+        eph = phase + u / total[0]
+        k, m = race(sums[0], ev, 11, n_k)
+        best = min(best, (m, f"slot race, event {ev}"))
+        src, m = race(rates[0, k], ev, 12, n)
+        best = min(best, (m, f"site race, event {ev}"))
+        dst = int(ti[k, src])
+        occ[0, src] -= 1.0
+        occ[0, dst] += 1.0
+        tls[0, dst] = frame_time + eph
+        key = rng.mix_key(kw["seed"], tile_id, frame_idx, ev, 3).to(dev)
+        u = -torch.log(rng.u01_counter(key, torch.tensor(rin, device=dev)))
+        phase = eph
+    return best
+
+
+def _k4_check(label, model, pos, tables, state, got, want, frame0, kw) -> float:
+    """K4 held to its plain version, as K1 is."""
+
+    def step(f, prev, s, st):
+        args = (model, pos[f:f + 1], [t[f:f + 1] for t in tables], [prev, s, *st],
+                frame0 + f)
+        return _k4_call(*args, **kw), _k4_call(*args, plain=True, **kw)
+
+    def margin(f, st, r):
+        return _topk_margin(model, [t[f] for t in tables], st, r, frame0 + f, kw)
+
+    return _hold("k4", label, got, want, state[9], pos.shape[0],
+                 lambda: _partings(pos.shape[0], state, step, margin, TOPK_STATE_KEYS))
+
+
+def topk_bound(R, B, N, P, K, events, blend, table_bytes) -> dict:
+    """Bound of a top-K sweep that fired `events` events: each rate
+    evaluation is K candidates at each of the P occupied sites per replica
+    (occ[i] is 1 there: 1 - occ[nbr], the multiply by omega and the add into
+    the slot sum; with the blend also d + ratio (r - d), the clamp at 50 and
+    the Fermi law, 9 more, and the site's ratio, 3 per site), one per event
+    plus the one that ends each replica-frame; each event races the K slots
+    and the P occupied sites, the only ones with a positive rate (a log, a
+    divide and a compare each). Bytes: positions, the tables, the replica
+    state read once and written once."""
+    per_site = K * (12.0 if blend else 3.0) + (3.0 if blend else 0.0)
+    flops = (events + R * B) * P * per_site + 3.0 * (P + K) * events
+    state = 4.0 * R * (3 * N + 5 * P + 2)  # occ, labels, tlast_site, sites, tlast, db, u, evc
+    return bound(flops, 4.0 * B * N * 3 + table_bytes + 2 * state + 4.0 * R
+                 + 4 * 4.0 * N * 3)
+
+
+def phase_k4(dev):
+    """K4 against topk_sweep_reference on the same tables: TopKPairRates k=8
+    (Fermi) and HydroniumRates k=4 (the blend in the loop) at the top-K
+    path's launch shape R=4096, B=100, N=144, timed there; law kinds 1-3 and
+    a triclinic cell at R=256, B=16; the supercell at R=4096, B=16, N=4608,
+    P=3072 (RNG tile from pick_tile_topk), timed there."""
+    worst, result = 0.0, {}
+    cases = [("topk", TOPK_REPLICAS, PRINT_FREQ, 0, False),
+             ("hydronium", TOPK_REPLICAS, PRINT_FREQ, 0, False),
+             ("topk", 256, 16, 1, False), ("topk", 256, 16, 2, False),
+             ("topk", 256, 16, 3, False), ("topk", 256, 16, 0, True),
+             ("supercell", SC_REPLICAS, 16, 0, False)]
+    for name, R, B, kind, tri in cases:
+        model, pos, tables, state, kw = _k4_inputs(dev, R, B, name, kind, tri, seed=kind)
+        N, P, K = pos.shape[1], state[4].shape[1], tables[0].shape[1]
+        label = (f"{name} k={K} kind {kind}{' triclinic' if tri else ''} R={R} B={B} "
+                 f"N={N} TR={kw['tile']}")
+        timed = R == TOPK_REPLICAS
+        frame0 = 0 if timed else 500
+        ms, got = cuda_ms(lambda: _k4_call(model, pos, tables, state, frame0, **kw),
+                          reps=3 if timed else 1)
+        plain_ms, want = cuda_ms(
+            lambda: _k4_call(model, pos, tables, state, frame0, plain=True, **kw), reps=1)
+        worst = max(worst, _k4_check(label, model, pos, tables, state, got, want,
+                                     frame0, kw))
+        events = int(want["ev_count"].sum() - state[9].sum())
+        n_tab = 3 if kw["blend"] else 2
+        b = topk_bound(R, B, N, P, K, events, kw["blend"], 4.0 * n_tab * B * K * N)
+        if timed:
+            say(f"[k4] {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {events} events)")
+        if name == "topk" and timed:
+            # no single PyTorch call runs this event loop
+            result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    result["max_abs_err"] = worst
+    return result
+
+
 def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
-                 stale: bool = False, angle: bool = False) -> Path:
+                 stale: bool = False, angle: bool = False, topk: str = "") -> Path:
     """Synthetic trajectory (seed 0, as bench.py builds it) and an INI. With
     ``angle`` the trajectory also holds N_P P atoms (uniform in the box,
     jittered like the O sites) and the INI is the angle deployment:
-    AngleTopology grouping GROUP O per P, FermiAngle with theta THETA."""
+    AngleTopology grouping GROUP O per P, FermiAngle with theta THETA.
+    ``topk`` picks a top-K deployment on the same frames: "topk"
+    (max_neighbors = TOPK_K) or "hydronium" (HydroniumTopology, HYD_K
+    neighbors, the RELU transformation, relaxation time RELAX); "supercell"
+    is tools/bench_topk_e2e.py's (SC_SITES sites in the SC_BOX cube, frames a
+    random walk, SC_PROTONS protons, max_neighbors = TOPK_K, nbr_reuse off)."""
     import numpy as np
 
     workdir.mkdir(parents=True, exist_ok=True)
-    tag = "angle_" if angle else ""
+    supercell = topk == "supercell"
+    tag = "angle_" if angle else "sc_" if supercell else ""
+    n_sites, protons, box = ((SC_SITES, SC_PROTONS, SC_BOX) if supercell
+                             else (N_SITES, N_PROTONS, BOX))
     traj = workdir / f"traj_{tag}{frames}.xyz"
     if not traj.exists():
         rng = np.random.RandomState(0)
-        base = rng.uniform(0, BOX, size=(N_SITES, 3)).astype(np.float32)
-        pbase = rng.uniform(0, BOX, size=(N_P if angle else 0, 3)).astype(np.float32)
-        names = ["O"] * N_SITES + ["P"] * len(pbase)
+        if supercell:
+            block = _walk_block(n_sites, frames, box)
+            names = np.array(["O"] * n_sites)
+        else:
+            base = rng.uniform(0, BOX, size=(N_SITES, 3)).astype(np.float32)
+            pbase = rng.uniform(0, BOX, size=(N_P if angle else 0, 3)).astype(np.float32)
+            names = np.array(["O"] * N_SITES + ["P"] * len(pbase))
+            atoms = np.vstack([base, pbase])
+            block = (atoms[None] + np.stack([rng.normal(scale=0.03, size=atoms.shape)
+                                             for _ in range(frames)])).astype(np.float32)
         lines = []
         for f in range(frames):
-            atoms = np.vstack([base, pbase])
-            atoms = (atoms + rng.normal(scale=0.03, size=atoms.shape)).astype(np.float32)
             lines.append(f"{len(names)}\nframe {f}\n")
             lines.append("".join(f"{a} {x:.6f} {y:.6f} {z:.6f}\n"
-                                 for a, (x, y, z) in zip(names, atoms)))
+                                 for a, (x, y, z) in zip(names, block[f].tolist())))
         tmp = traj.with_suffix(".tmp")
         tmp.write_text("".join(lines))
         tmp.replace(traj)
+    extra = ""
     if angle:
         topology = f"""type = AngleTopology
 donor_atoms = O
 extra_atoms = P
 group_size = {GROUP}"""
         law = f"type = FermiAngle\ntheta = {THETA}"
+    elif topk == "hydronium":
+        topology = f"type = HydroniumTopology\ndonor_atoms = O\nneighbors = {HYD_K}"
+        law = "type = Fermi"
+        a, b, d0, left, right = RELU
+        extra = f"""[DistanceTransformation]
+type = ReLUTransformation
+a = {a}
+b = {b}
+d0 = {d0}
+left_bound = {left}
+right_bound = {right}
+[DistanceInterpolator]
+relaxation_time = {RELAX}
+"""
+    elif topk:
+        topology = f"type = NeighborTopology\ndonor_atoms = O\nmax_neighbors = {TOPK_K}"
+        law = "type = Fermi"
     else:
         topology, law = "type = NeighborTopology\ndonor_atoms = O", "type = Fermi"
-    cfg = workdir / f"run_{tag}{frames}_{replicas}{'_stale' if stale else ''}.ini"
+    name = f"run_{tag}{topk}{frames}_{replicas}{'_stale' if stale else ''}.ini"
+    cfg = workdir / name
     cfg.write_text(f"""[Trajectory]
 filename = {traj}
 time_step = {DT}
 [AtomBox]
 type = AtomBoxCubic
-periodic_boundaries = {BOX}, {BOX}, {BOX}
+periodic_boundaries = {box}, {box}, {box}
 [NeighborTopology]
 {topology}
 cutoff = {CUTOFF}
 buffer = {BUFFER}
-[JumpRate]
+{extra}[JumpRate]
 {law}
 a = {FERMI[0]}
 b = {FERMI[1]}
 c = {FERMI[2]}
 [KMCLattice]
-lattice_size = {N_SITES}
-proton_number = {N_PROTONS}
+lattice_size = {n_sites}
+proton_number = {protons}
 time_step = {DT}
 [Output]
 type = ObservablesOutput
@@ -707,6 +1034,7 @@ block_size = {BLOCK}
 max_events_per_frame = {MAX_EVENTS}
 {f"sweeps = {sweeps}" if sweeps else ""}
 {"stale_rates = on" if stale else ""}
+{"nbr_reuse = off" if supercell else ""}
 """)
     return cfg
 
@@ -723,10 +1051,13 @@ def _counters():
     """The launch counter of every kernel wrapper, by kernel name."""
     from cmdlmc_tpu_torch.ops import kmc_sweep as ks
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
     from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 
     return {"kmc_sweep_streamed": kss.kmc_sweep_streamed,
-            "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep}
+            "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep,
+            "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables}
 
 
 def _small_cuda_vs_cpu(label, cfg):
@@ -748,7 +1079,8 @@ def _small_cuda_vs_cpu(label, cfg):
         raise AssertionError(f"cuda and cpu runs of the small {label} config disagree")
 
 
-def _drive(label, cfg, card, frames, replicas, expect, refuse=()):
+def _drive(label, cfg, card, frames, replicas, expect, refuse=(),
+           n_sites=N_SITES, protons=N_PROTONS):
     """One end-to-end run through driver.run_from_config with every launch
     count set to 0 just before it and read just after; checks the output
     rows and that the kernels in `expect` launched and those in `refuse`
@@ -780,7 +1112,7 @@ def _drive(label, cfg, card, frames, replicas, expect, refuse=()):
     vals = np.array(rows, dtype=np.float64)
     if not np.isfinite(vals).all():
         raise AssertionError(f"{label}: non-finite values in the output rows")
-    if not (vals[:, 5] <= N_PROTONS).all() or not (vals[:, 6] > 0).any():
+    if not (vals[:, 5] <= protons).all() or not (vals[:, 6] > 0).any():
         raise AssertionError(f"{label}: Autocorr > proton count or no jumps")
     if not perf:
         raise AssertionError(f"{label}: no '# perf:' line")
@@ -792,20 +1124,24 @@ def _drive(label, cfg, card, frames, replicas, expect, refuse=()):
     say(f"[e2e] {label}: {len(rows)} rows, frames {int(vals[0, 0])}.."
         f"{int(vals[-1, 0])}, last Autocorr {vals[-1, 5]:.2f} Jumps "
         f"{vals[-1, 6]:.2f}; {int(ev.sum())} events in total")
-    say(f"[e2e] {label}: {perf[0]}")
+    say(f"[e2e] {label}: {perf[0]} ({card})")
     say(f"[e2e] {label}: wall {wall:.2f} s for {frames} frames x {replicas} "
-        f"replicas x {N_SITES} sites ({card})")
+        f"replicas x {n_sites} sites ({card})")
     return launches
 
 
 def phase_end_to_end(card: str):
-    """Two small runs (dense and angle) held against the CPU, then the
-    deployments end to end on the card: bench.py's at R=16384 (stage 1 +
-    K1, the main path) and at R=1024 (K3), and the angle deployment at
-    R=1024 (K3, law kind 4) and R=4096 (stage 1 with the angle W + K1)."""
+    """Four small runs (dense, angle, top-K, hydronium) held against the
+    CPU, then the deployments end to end on the card: bench.py's at R=16384
+    (stage 1 + K1, the main path) and at R=1024 (K3), the angle deployment at
+    R=1024 (K3, law kind 4) and R=4096 (stage 1 with the angle W + K1), the
+    top-K and hydronium deployments at R=4096 and the top-K supercell at
+    N=4608 (K5 + K4 each, none of K1, K2, K3)."""
     _small_cuda_vs_cpu("dense", write_inputs(WORK, frames=64, replicas=256))
     _small_cuda_vs_cpu("angle", write_inputs(WORK, frames=64, replicas=256,
                                              angle=True))
+    for topk in ("topk", "hydronium"):
+        _small_cuda_vs_cpu(topk, write_inputs(WORK, frames=64, replicas=256, topk=topk))
     paths = {}
     paths["dense R=16384"] = _drive(
         "dense R=16384", write_inputs(WORK, frames=1024, replicas=REPLICAS),
@@ -826,6 +1162,18 @@ def phase_end_to_end(card: str):
                                      replicas=ANGLE_STREAMED_REPLICAS, angle=True),
         card, 512, ANGLE_STREAMED_REPLICAS,
         expect=("kmc_sweep_streamed", "pairwise_cubic"), refuse=("kmc_sweep",))
+    dense = ("kmc_sweep_streamed", "pairwise_cubic", "kmc_sweep")
+    for topk in ("topk", "hydronium"):
+        label = f"{topk} R={TOPK_REPLICAS}"
+        paths[label] = _drive(
+            label, write_inputs(WORK, frames=512, replicas=TOPK_REPLICAS, topk=topk),
+            card, 512, TOPK_REPLICAS, expect=("topk_sweep", "knn_tables"),
+            refuse=dense)
+    paths["topk supercell N=4608"] = _drive(
+        "topk supercell N=4608",
+        write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="supercell"),
+        card, 512, SC_REPLICAS, expect=("topk_sweep", "knn_tables"), refuse=dense,
+        n_sites=SC_SITES, protons=SC_PROTONS)
     return paths
 
 
@@ -841,10 +1189,10 @@ def _union_us(intervals) -> float:
 
 def phase_profile(card: str):
     """Where the end-to-end run's time goes: the bench.py deployment with
-    fresh and with stale rates, each traced with torch.profiler after a warm
-    run. Device busy time is the union of kernel and copy intervals in the
-    trace; idle is the rest of the traced wall time. Also times the host's
-    xyz parse of the same trajectory alone."""
+    fresh and with stale rates, and the top-K supercell, each traced with
+    torch.profiler after a warm run. Device busy time is the union of kernel
+    and copy intervals in the trace; idle is the rest of the traced wall
+    time. Also times the host's xyz parse of the dense trajectory alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -858,9 +1206,14 @@ def phase_profile(card: str):
         traj, time_step=DT, batch_frames=BLOCK).iter_batches())
     say(f"[profile] host xyz parse of {frames} frames x {N_SITES} atoms: "
         f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
-    for stale in (False, True):
-        name = "stale" if stale else "fresh"
-        cfg = write_inputs(WORK, frames=1024, replicas=REPLICAS, stale=stale)
+    dense = {"K1": "kmc_sweep_streamed_kernel", "K2": "pairwise_kernel"}
+    runs = [("fresh", write_inputs(WORK, frames=1024, replicas=REPLICAS), dense),
+            ("stale", write_inputs(WORK, frames=1024, replicas=REPLICAS, stale=True),
+             dense),
+            ("supercell", write_inputs(WORK, frames=512, replicas=SC_REPLICAS,
+                                       topk="supercell"),
+             {"K4": "topk_sweep_kernel", "K5": "knn_tables_kernel"})]
+    for name, cfg, kernels in runs:
         driver.run_from_config(cfg, out=io.StringIO(), device="cuda")  # warm
         torch.cuda.synchronize()
         buf = io.StringIO()
@@ -878,18 +1231,19 @@ def phase_profile(card: str):
         if not events:
             raise AssertionError("the trace holds no device activity")
         busy = _union_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
-        k1 = sum(e["dur"] for e in events
-                 if "kmc_sweep_streamed_kernel" in e["name"]) / 1e3
-        k2 = sum(e["dur"] for e in events
-                 if "pairwise_kernel" in e["name"]) / 1e3
+        shares = []
+        rest = busy
+        for tag, kname in kernels.items():
+            ms = sum(e["dur"] for e in events if kname in e["name"]) / 1e3
+            rest -= ms
+            shares.append(f"{tag} {ms:.3f} ms ({100 * ms / busy:.2f}% of busy)")
         perf = [ln for ln in buf.getvalue().splitlines()
                 if ln.startswith("# perf:")]
-        say(f"[profile] {name} rates: traced wall {wall_ms:.2f} ms, device busy "
-            f"{busy:.2f} ms, idle {100 * (1 - busy / wall_ms):.1f}%; K1 "
-            f"{k1:.2f} ms ({100 * k1 / busy:.2f}% of busy), K2 {k2:.3f} ms "
-            f"({100 * k2 / busy:.2f}%), other device work "
-            f"{100 * (busy - k1 - k2) / busy:.2f}% ({card})")
-        say(f"[profile] {name} rates: {perf[0] if perf else 'no perf line'}; "
+        say(f"[profile] {name}: traced wall {wall_ms:.2f} ms, device busy "
+            f"{busy:.2f} ms, idle {100 * (1 - busy / wall_ms):.1f}%; "
+            + ", ".join(shares)
+            + f", other device work {100 * rest / busy:.2f}% ({card})")
+        say(f"[profile] {name}: {perf[0] if perf else 'no perf line'}; "
             f"trace {trace}")
 
 
@@ -900,9 +1254,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the end-to-end run (fresh and stale "
-                         "rates) with torch.profiler and print where the "
-                         "device time goes")
+                    help="also trace the dense end-to-end run (fresh and "
+                         "stale rates) and the top-K supercell with "
+                         "torch.profiler and print where the device time "
+                         "goes")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -934,13 +1289,17 @@ def main() -> int:
     k2 = phase_k2(dev)
     k1 = phase_k1(dev)
     k3 = phase_k3(dev)
+    k5 = phase_k5(dev)
+    k4 = phase_k4(dev)
     paths = phase_end_to_end(card)
     if opts.profile:
         phase_profile(card)
 
     # each kernel's launches in the end-to-end run of its own path: K1 and
-    # K2 on the main path (R=16384), K3 on the in-kernel route (R=1024)
+    # K2 on the main path (R=16384), K3 on the in-kernel route (R=1024), K4
+    # and K5 on the top-K path (R=4096)
     main_path, inkernel_path = paths["dense R=16384"], paths["dense R=1024"]
+    topk_path = paths[f"topk R={TOPK_REPLICAS}"]
     kernels = [
         {"name": "kmc_sweep_streamed", "route": "cuda",
          "source": "cmdlmc_tpu_torch/csrc/kmc_sweep_streamed.cu",
@@ -954,6 +1313,14 @@ def main() -> int:
          "source": "cmdlmc_tpu_torch/csrc/kmc_sweep.cu",
          "replaces": "cmdlmc_tpu/ops/kmc_sweep.py:690",
          "launches": inkernel_path["kmc_sweep"], **k3},
+        {"name": "topk_sweep", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/topk_sweep.cu",
+         "replaces": "cmdlmc_tpu/ops/topk_sweep.py:1538",
+         "launches": topk_path["topk_sweep"], **k4},
+        {"name": "knn_tables", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/knn_tables.cu",
+         "replaces": "cmdlmc_tpu/ops/knn_tables.py:122",
+         "launches": topk_path["knn_tables"], **k5},
     ]
     say(f"[e2e] launches by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,10 @@ from cmdlmc_tpu_torch.core.cell import Cell
 from cmdlmc_tpu_torch.engine.clock import ClockState
 from cmdlmc_tpu_torch.engine.lattice import EnsembleState, ReplicaState
 from cmdlmc_tpu_torch.rates import laws
-from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
+from cmdlmc_tpu_torch.topo import transforms
+from cmdlmc_tpu_torch.topo.models import (
+    AnglePairRates, HydroniumRates, PairRates, TopKPairRates,
+)
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -94,4 +97,45 @@ def angle_pair_rates_from_fields(model, device="cpu") -> AnglePairRates:
         float(np.asarray(model.cutoff)),
         float(np.asarray(model.buffer)),
         _t(model.o_to_p, device, np.int64),
+    )
+
+
+def transform_from_fields(transform, device="cpu"):
+    """The port's distance transformation (ReLU, Linear, or Interpolated
+    with its x / y tables) from a JAX one, or None."""
+    if transform is None:
+        return None
+    cls = transforms.TRANSFORM_REGISTRY.get(type(transform).__name__)
+    if cls is None:
+        raise NotImplementedError(
+            f"transformation {type(transform).__name__} is not ported")
+    return cls(**{n: np.asarray(getattr(transform, n)) for n in cls.names}).to(device)
+
+
+def topk_pair_rates_from_fields(model, device="cpu") -> TopKPairRates:
+    """The port's TopKPairRates from a JAX ``TopKPairRates``."""
+    return TopKPairRates(
+        cell_from_fields(model.cell, device),
+        law_from_fields(model.law, device),
+        float(np.asarray(model.cutoff)),
+        float(np.asarray(model.buffer)),
+        k=int(model.k),
+    )
+
+
+def hydronium_rates_from_fields(model, device="cpu") -> HydroniumRates:
+    """The port's HydroniumRates from a JAX ``HydroniumRates``, with its
+    transformation and interpolator."""
+    interp = None
+    if model.interpolator is not None:
+        interp = transforms.DistanceInterpolator(
+            relaxation_time=np.asarray(model.interpolator.relaxation_time)).to(device)
+    return HydroniumRates(
+        cell_from_fields(model.cell, device),
+        law_from_fields(model.law, device),
+        float(np.asarray(model.cutoff)),
+        float(np.asarray(model.buffer)),
+        transform=transform_from_fields(model.transform, device),
+        interpolator=interp,
+        k=int(model.k),
     )

@@ -74,6 +74,24 @@ class Cell:
             return cls.triclinic(pbc, box_multiplier, device)
         raise ValueError(f"Expected 3 or 9 box parameters, got {pbc.size}")
 
+    @property
+    def min_height(self) -> float:
+        """Smallest perpendicular distance between opposite cell faces: the
+        round-based fractional minimum image of the top-K kernels is exact
+        only for vectors shorter than half of it."""
+        h = self.h.detach().cpu().double().numpy()
+        a, b, c = h[:, 0], h[:, 1], h[:, 2]
+        volume = abs(np.dot(a, np.cross(b, c)))
+        areas = np.array([np.linalg.norm(np.cross(b, c)),
+                          np.linalg.norm(np.cross(c, a)),
+                          np.linalg.norm(np.cross(a, b))])
+        return float((volume / areas).min())
+
+    def host_geometry(self) -> tuple[float, ...]:
+        """h then h^-1, each row-major, as 18 host floats (the event-loop
+        kernels' cell argument)."""
+        return tuple(torch.cat([self.h.reshape(9), self.h_inv.reshape(9)]).tolist())
+
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root. torch's CPU ``sqrt`` may be one

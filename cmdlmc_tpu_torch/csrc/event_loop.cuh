@@ -37,9 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kmc_common.cuh"
 #include "rng.cuh"
-
-#define FULL_MASK 0xffffffffu
 
 struct SweepArgs {
   const float* w;        // [B, N, N] (K1; unused by K3)
@@ -65,27 +64,6 @@ struct SweepArgs {
   float box[3];
   float params[6];       // K3: law parameters (slot 3 = cos theta, kind 4)
 };
-
-__device__ inline float warp_sum(float v) {
-  // xor butterfly: every lane ends with the same bits (fp add commutes)
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-  return v;
-}
-
-__device__ inline void warp_argmax(float& v, int& idx) {
-  for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(FULL_MASK, v, o);
-    int oi = __shfl_xor_sync(FULL_MASK, idx, o);
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
-    }
-  }
-}
-
-__device__ inline float minimg(float d, float len) {
-  return d - len * rintf(d / len);
-}
 
 // row[i] = occ[i] * sum_j W[i][j] (1 - occ[j]); returns sum_i row[i].
 __device__ inline float total_rate(const float* wf, int ldw, const float* occ,
@@ -148,16 +126,11 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
     rin = (uint32_t)(r % a.tile);
   }
   const float dt = a.dt;
+  const CellImage cell = orthorhombic_image(a.box[0], a.box[1], a.box[2]);
 
   for (int f = 0; f < a.B; ++f) {
     __syncthreads();  // every warp is done with the previous frame
-    const float* post = a.pos + (size_t)f * 3 * n;
-    for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) {
-      float p = post[k];
-      float d = minimg(p - cur[k], a.box[k % 3]);
-      s[k] = s[k] + d;
-      cur[k] = p;
-    }
+    advance_prefix(s, cur, a.pos + (size_t)f * 3 * n, n, cell);
     __syncthreads();
     stage(a, f, ws, cur, warp, lane);
     __syncthreads();

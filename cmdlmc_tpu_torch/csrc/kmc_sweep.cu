@@ -35,21 +35,6 @@
 #include "device_guard.cuh"
 #include "event_loop.cuh"
 
-#define KB_EV_PER_K 8.617333262e-5f  // Boltzmann constant, eV / K
-
-__device__ inline float apply_law(int kind, float dist, const float* p) {
-  if (kind == 1) return p[0];
-  if (kind == 2) return p[0] * expf(p[1] * dist);
-  if (kind == 3) {
-    float dd = dist - p[3];
-    float safe = fabsf(dd) > 1e-6f ? dd : 1e-6f;
-    float energy = p[1] * dd * (1.0f / sqrtf(p[2] + 1.0f / (safe * safe)));
-    energy = fmaxf(energy, 0.f);
-    return p[0] * expf(-energy / (KB_EV_PER_K * p[4]));
-  }
-  return p[0] / (1.0f + expf((dist - p[1]) / p[2]));  // 0 and 4: Fermi
-}
-
 // Builds W[f] into the block's shared memory from the frame's positions,
 // every entry bit for bit as the reference computes it, with two savings:
 // * distance and law are symmetric, so each pair i < j is evaluated once and
@@ -201,11 +186,7 @@ extern "C" int cmdlmc_kmc_sweep(
   a.params[3] = p3;
   a.params[4] = p4;
   a.params[5] = p5;
-  // the largest float whose sqrtf is <= cutbuf (host sqrtf rounds correctly)
-  float t = cutbuf * cutbuf;
-  while (sqrtf(t) <= cutbuf && t < INFINITY) t = nextafterf(t, INFINITY);
-  while (t > 0.f && sqrtf(t) > cutbuf) t = nextafterf(t, 0.f);
-  a.acc_cut = t;
+  a.acc_cut = sqrt_cut(cutbuf);
 
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,

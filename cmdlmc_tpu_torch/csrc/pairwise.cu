@@ -18,6 +18,7 @@
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "kmc_common.cuh"
 
 __global__ void pairwise_kernel(const float* __restrict__ pos, int n,
                                 float lx, float ly, float lz,
@@ -28,12 +29,9 @@ __global__ void pairwise_kernel(const float* __restrict__ pos, int n,
   if (i >= n || j >= n) return;
   const float* pi = pos + ((size_t)b * n + i) * 3;
   const float* pj = pos + ((size_t)b * n + j) * 3;
-  float dx = __ldg(pj + 0) - __ldg(pi + 0);
-  float dy = __ldg(pj + 1) - __ldg(pi + 1);
-  float dz = __ldg(pj + 2) - __ldg(pi + 2);
-  dx = dx - lx * rintf(dx / lx);
-  dy = dy - ly * rintf(dy / ly);
-  dz = dz - lz * rintf(dz / lz);
+  float dx = minimg(__ldg(pj + 0) - __ldg(pi + 0), lx);
+  float dy = minimg(__ldg(pj + 1) - __ldg(pi + 1), ly);
+  float dz = minimg(__ldg(pj + 2) - __ldg(pi + 2), lz);
   float acc = dx * dx + dy * dy;
   acc = acc + dz * dz;
   out[((size_t)b * n + i) * n + j] = sqrtf(acc);

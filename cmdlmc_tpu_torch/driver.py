@@ -1,16 +1,18 @@
 """Simulation driver: config -> object graph -> streamed KMC run.
 
-Port of ``cmdlmc_tpu/driver.py`` for the dense solid-acid paths
-(NeighborTopology and AngleTopology): it
+Port of ``cmdlmc_tpu/driver.py`` for the solid-acid and hydronium paths
+(NeighborTopology, dense or with ``max_neighbors``, AngleTopology and
+HydroniumTopology): it
 
-  1. builds the cell, trajectory reader, rate law and the ``PairRates`` or
-     ``AnglePairRates`` model (the latter from the first block's extra atoms)
-     on an explicit ``torch.device``,
+  1. builds the cell, trajectory reader, rate law, distance transformation
+     and the ``PairRates``, ``AnglePairRates`` (from the first block's extra
+     atoms), ``TopKPairRates`` or ``HydroniumRates`` model on an explicit
+     ``torch.device``,
   2. initializes a batch of replicas from a seeded ``torch.Generator`` (or
      takes a given initial state),
   3. streams trajectory frame blocks to the device on a prefetch thread and
-     advances them with kernel K3 or stage 1 + kernel K1, as the route rule
-     of ``engine/fused.py`` picks, cut at every print or reset frame,
+     advances them through ``engine/fused.py`` (kernel K3, stage 1 + K1, or
+     for the top-K models stage 1 + K4), cut at every print or reset frame,
   4. prints the reference's '#'-commented column output.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
@@ -36,8 +38,15 @@ from cmdlmc_tpu_torch.io.stream import frame_blocks, prefetch
 from cmdlmc_tpu_torch.io.xyz import XYZTrajectory
 from cmdlmc_tpu_torch.rates import laws as rate_laws
 from cmdlmc_tpu_torch.topo import models as topo_models
+from cmdlmc_tpu_torch.topo import transforms as topo_transforms
 
 logger = logging.getLogger(__name__)
+
+
+def _topk_config(cfg: SimulationConfig) -> bool:
+    topo = cfg.topology
+    return topo.type_ == "HydroniumTopology" or (
+        topo.type_ == "NeighborTopology" and bool(topo.max_neighbors))
 
 
 def resolve_device(device) -> torch.device:
@@ -58,10 +67,16 @@ def unsupported_reason(cfg: SimulationConfig) -> str | None:
     topo = cfg.topology
     if cfg.trajectory.type_ == "HDF5Trajectory":
         return "HDF5 trajectories are not ported yet (ROADMAP A9)"
-    if topo.type_ not in ("NeighborTopology", "AngleTopology"):
-        return f"{topo.type_} is not ported yet (ROADMAP A14)"
-    if topo.max_neighbors:
-        return "NeighborTopology max_neighbors (top-K) is not ported yet (ROADMAP A14)"
+    if topo.type_ not in ("NeighborTopology", "AngleTopology", "HydroniumTopology"):
+        return f"topology type {topo.type_!r} is not supported"
+    if _topk_config(cfg):
+        reuse = cfg.engine.nbr_reuse
+        # the auto rule at the configured lattice size; run_block_fused
+        # applies it again at the trajectory's site count
+        auto_on = eng_fused.nbr_reuse_auto(topo.type_ == "NeighborTopology",
+                                           cfg.kmc.lattice_size or 0, topo.buffer)
+        if reuse == "on" or (reuse == "auto" and auto_on):
+            return eng_fused.NBR_REUSE_REASON
     if cfg.output.jumpstat_bins > 0 or cfg.engine.jumpmatrix_filename:
         return "jump statistics and the jump matrix are not ported yet (ROADMAP A11)"
     if cfg.engine.checkpoint_path:
@@ -124,12 +139,34 @@ def build_law(cfg: SimulationConfig, device=None):
     return law.to(device)
 
 
+def build_transformation(cfg: SimulationConfig, device=None):
+    tr = cfg.transformation
+    if tr is None:
+        return None
+    if tr.type_ == "ReLUTransformation":
+        t = topo_transforms.ReLUTransformation(
+            a=tr.a, b=tr.b, d0=tr.d0, left_bound=tr.left_bound,
+            right_bound=tr.right_bound)
+    elif tr.type_ == "LinearTransformation":
+        t = topo_transforms.LinearTransformation(
+            a=tr.a, b=tr.b, left_bound=tr.left_bound, right_bound=tr.right_bound)
+    elif tr.type_ == "InterpolatedTransformation":
+        t = topo_transforms.InterpolatedTransformation.from_file(
+            tr.dist_array_filename, tr.conversion_array_filename)
+    else:
+        raise ValueError(f"Unknown distance transformation {tr.type_!r}")
+    return t.to(device)
+
+
 def build_model(cfg: SimulationConfig, cell: Cell, law, donors0=None,
                 extras0=None):
     """The rate model; AngleTopology groups its donors with the extra atoms
     of the first frame (``donors0`` [N, 3], ``extras0`` [M, 3])."""
     topo = cfg.topology
-    if topo.type_ == "NeighborTopology" and not topo.max_neighbors:
+    if topo.type_ == "NeighborTopology":
+        if topo.max_neighbors:
+            return topo_models.TopKPairRates(cell, law, topo.cutoff, topo.buffer,
+                                             k=topo.max_neighbors)
         return topo_models.PairRates(cell, law, topo.cutoff, topo.buffer)
     if topo.type_ == "AngleTopology":
         if extras0 is None:
@@ -137,6 +174,15 @@ def build_model(cfg: SimulationConfig, cell: Cell, law, donors0=None,
         return topo_models.AnglePairRates.from_first_frame(
             cell, law, topo.cutoff, topo.buffer, donors0, extras0,
             topo.group_size)
+    if topo.type_ == "HydroniumTopology":
+        interp = None
+        if cfg.interpolator is not None:
+            interp = topo_transforms.DistanceInterpolator(
+                relaxation_time=cfg.interpolator.relaxation_time).to(cell.h.device)
+        return topo_models.HydroniumRates(
+            cell, law, topo.cutoff, topo.buffer,
+            transform=build_transformation(cfg, cell.h.device),
+            interpolator=interp, k=topo.neighbors)
     raise NotImplementedError(unsupported_reason(cfg))
 
 
@@ -208,9 +254,19 @@ class Simulation:
                 "[Output] variance_mode must be 'replicas' or 'protons', "
                 f"got {cfg.output.variance_mode!r}"
             )
+        if cfg.engine.nbr_reuse not in ("auto", "on", "off"):
+            raise ValueError(
+                f"[Engine] nbr_reuse must be 'auto', 'on' or 'off', "
+                f"got {cfg.engine.nbr_reuse!r}"
+            )
         reason = unsupported_reason(cfg)
         if reason:
             raise NotImplementedError(reason)
+        if cfg.engine.stale_rates and _topk_config(cfg):
+            logger.warning(
+                "[Engine] stale_rates only changes the fused DENSE backends; "
+                "the top-K kernel path recomputes in-frame rates after each "
+                "event (distributionally equivalent at rate*dt << 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cell = build_cell(cfg, self.device)
@@ -322,6 +378,8 @@ class Simulation:
                     return_truncation=True,
                     stale_rates=cfg.engine.stale_rates,
                     extras_positions=extras[lo:hi] if self.angle else None,
+                    nbr_reuse={"auto": None, "on": True, "off": False}[
+                        cfg.engine.nbr_reuse],
                 )
                 # stays on the device; fetched once at the end of the run
                 frac = trunc.sum() / (trunc.shape[0] * (sub_end - sub_start))

@@ -1,19 +1,21 @@
 """Fused engine backend: EnsembleState <-> event-loop kernel adapters.
 
-Port of the dense branches of ``cmdlmc_tpu/engine/fused.py``, with two
-routes that draw the same random numbers and, for the same W, land in the
-same state:
+Port of ``cmdlmc_tpu/engine/fused.py`` without jump statistics, the jump
+matrix (ROADMAP A11), multi-GPU sharding (A18) and Verlet candidate reuse
+(A15). Three kernels advance a whole block of frames per launch:
 
-* in-kernel W (``ops/kmc_sweep.py``, kernel K3): each thread block builds a
-  frame's W from the positions in its shared memory. It serves few replica
-  tiles, where one W build per block is cheap next to the event loop;
-* streamed W (``ops/kmc_sweep_streamed.py``, kernel K1): stage 1 builds the
-  block's W [B, N, N] once (``dense_tables``, with kernel K2 for the
-  distances) and every replica reads it; any law, and ``stale_rates``.
-
-:func:`inkernel_route` is the rule between them. ``AnglePairRates`` runs on
-both: K3 evaluates the FermiAngle gate itself (law kind 4), stage 1 builds
-the angle W for any other law or at many tiles.
+* the dense models (``PairRates``, ``AnglePairRates``) on two routes that
+  draw the same random numbers and, for the same W, land in the same state:
+  in-kernel W (``ops/kmc_sweep.py``, kernel K3), where each thread block
+  builds a frame's W from the positions, for few replica tiles; and
+  streamed W (``ops/kmc_sweep_streamed.py``, kernel K1), where stage 1 builds
+  the block's W [B, N, N] once (``dense_tables``, kernel K2 for the
+  distances) for any law and ``stale_rates``. :func:`inkernel_route` is the
+  rule between them; K3 evaluates the FermiAngle gate itself (law kind 4);
+* the top-K models (``TopKPairRates``, ``HydroniumRates``) on
+  ``ops/topk_sweep.py``: stage 1 builds the K-nearest tables (kernel K5 for
+  an orthorhombic cell on the card), kernel K4 runs the event loop over them,
+  triclinic cells included where the round-based minimum image is exact.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ from cmdlmc_tpu_torch.core.cell import Cell
 from cmdlmc_tpu_torch.engine.lattice import EnsembleState
 from cmdlmc_tpu_torch.ops import kmc_sweep as ks
 from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+from cmdlmc_tpu_torch.ops import topk_sweep as ts
 from cmdlmc_tpu_torch.rates import laws as rate_laws
-from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
+from cmdlmc_tpu_torch.topo.models import (
+    AnglePairRates, PairRates, TopKPairRates, TopKRates,
+)
 
 # The in-kernel route serves fewer replica tiles than this: the JAX
 # package's switch, so the port evaluates the FermiAngle gate where the
@@ -39,11 +44,20 @@ INKERNEL_MAX_TILES = 16
 def fused_unsupported_reason(model, cell: Cell) -> str | None:
     """None if a port kernel can run this model and cell, else the reason,
     naming the ROADMAP item that will add it."""
+    if isinstance(model, TopKRates):
+        # the round-based minimum image of the top-K kernels is exact only
+        # for vectors shorter than half the smallest cell height; candidate
+        # pair vectors reach cutoff + buffer
+        if not cell.orthorhombic and model.cutbuf >= 0.5 * cell.min_height:
+            return (
+                f"triclinic cell too skewed for the top-K kernel's round-based "
+                f"minimum image: cutoff+buffer ({model.cutbuf:.2f}) >= half the "
+                f"smallest perpendicular cell height ({0.5 * cell.min_height:.2f}); "
+                "the scan engine is not ported yet (ROADMAP A12)"
+            )
+        return ts.topk_unsupported_reason(model)
     if not isinstance(model, PairRates):
-        return (
-            f"topology model {type(model).__name__} is not ported yet "
-            "(top-K and hydronium: ROADMAP A14)"
-        )
+        return f"topology model {type(model).__name__} has no fused kernel"
     if not cell.orthorhombic:
         return "triclinic cells on the streamed kernel are not ported yet (ROADMAP A11)"
     if (isinstance(model.law, rate_laws.FermiAngle)
@@ -102,6 +116,19 @@ def _streamed_frame_chunk(n_frames: int, n_sites: int) -> int:
     return max(1, min(n_frames, STREAMED_TABLE_BUDGET_BYTES // max(per_frame, 1)))
 
 
+def nbr_reuse_auto(top_k_pairs: bool, n_sites: int, buffer: float) -> bool:
+    """The JAX package's ``[Engine] nbr_reuse = auto`` rule: Verlet candidate
+    reuse on for TopKPairRates (``top_k_pairs``) at supercell N (>= 1024
+    sites) with a positive buffer."""
+    return top_k_pairs and n_sites >= 1024 and buffer > 0.0
+
+
+NBR_REUSE_REASON = (
+    "Verlet candidate reuse on the top-K path is not ported yet (ROADMAP "
+    "A15); set [Engine] nbr_reuse = off for per-frame neighbor lists"
+)
+
+
 def run_block_fused(
     model,
     cell: Cell,
@@ -118,12 +145,20 @@ def run_block_fused(
     stale_rates: bool = False,
     extras_positions: torch.Tensor | None = None,  # [B, M, 3] (AngleTopology)
     streamed: bool | None = None,  # None: the route rule decides
+    nbr_reuse: bool | None = None,  # top-K only; None: the JAX auto rule
 ):
     """Advance all replicas across the block. With ``return_truncation``
-    also returns the per-replica count of frames whose event budget ran out."""
+    also returns the per-replica count of frames whose event budget ran out.
+    Top-K models run per-frame neighbor lists: ``nbr_reuse`` True, or None
+    where the JAX package's auto rule would turn reuse on, raises."""
     reason = fused_unsupported_reason(model, cell)
     if reason:
         raise NotImplementedError(reason)
+    if isinstance(model, TopKRates):
+        return _run_block_topk(
+            model, cell, ens, frames_positions, frame0, dt=dt,
+            max_events=max_events, seed=seed, tile=tile, tile_offset=tile_offset,
+            return_truncation=return_truncation, nbr_reuse=nbr_reuse)
     angle = isinstance(model, AnglePairRates)
     if angle and extras_positions is None:
         raise ValueError("AngleTopology fused run needs extra-atom positions")
@@ -177,6 +212,42 @@ def run_block_fused(
         tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
         stale=stale_rates,
     )
+    return _finish(ens, rep, out, return_truncation)
+
+
+def _run_block_topk(model, cell, ens, frames_positions, frame0, *, dt,
+                    max_events, seed, tile, tile_offset, return_truncation,
+                    nbr_reuse):
+    """The top-K branch of :func:`run_block_fused`: stage 1 over the block,
+    then K4, split into frame sub-ranges where the tables would pass the
+    table budget (bit-exact: draws are keyed by absolute frame and event
+    ordinal, and ``tlast_site`` is rebuilt from the state at each entry).
+    ``stale_rates`` does not reach it: K4 recomputes in-frame rates after
+    every event (the driver says so once per run)."""
+    rep = ens.replicas
+    R, N = rep.occ.shape
+    if nbr_reuse or (nbr_reuse is None and nbr_reuse_auto(
+            isinstance(model, TopKPairRates), N, model.host_buffer)):
+        raise NotImplementedError(NBR_REUSE_REASON)
+    if tile is None:
+        tile = ts.pick_tile_topk(R, n_sites=N, n_protons=rep.site_of_proton.shape[1],
+                                 k_cand=model.k)
+    B = frames_positions.shape[0]
+    per_frame = 3 * 4 * min(model.k, N - 1) * N  # topd, topi, resc
+    chunk = max(1, STREAMED_TABLE_BUDGET_BYTES // per_frame)
+    if chunk < B:
+        trunc_total = None
+        for s in range(0, B, chunk):
+            e = min(s + chunk, B)
+            ens, trunc = _run_block_topk(
+                model, cell, ens, frames_positions[s:e], frame0 + s, dt=dt,
+                max_events=max_events, seed=seed, tile=tile,
+                tile_offset=tile_offset, return_truncation=True, nbr_reuse=False)
+            trunc_total = trunc if trunc_total is None else trunc_total + trunc
+        return (ens, trunc_total) if return_truncation else ens
+    out = ts.run_block_topk(model, ens, frames_positions, frame0, dt=dt,
+                            max_events=max_events, seed=seed, tile=tile,
+                            tile_offset=tile_offset)
     return _finish(ens, rep, out, return_truncation)
 
 

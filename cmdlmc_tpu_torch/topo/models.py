@@ -1,8 +1,13 @@
-"""Per-frame dense rate models: the stage-1 rate matrix W.
+"""Per-frame rate models: the dense rate matrix W or the K-nearest tables.
 
-Port of the dense part of ``cmdlmc_tpu/topo/models.py`` (``Frame``,
-``DenseShared``, ``PairRates``, ``determine_groups``, ``AnglePairRates``).
-The top-K and hydronium models wait for ROADMAP A14.
+Port of ``cmdlmc_tpu/topo/models.py``: ``Frame``, ``DenseShared``,
+``PairRates``, ``determine_groups`` and ``AnglePairRates`` build the dense
+W[N, N] shared by all replicas; ``TopKShared``, ``k_smallest``,
+``TopKPairRates`` (the reference's Verlet-list option as a K-nearest list)
+and ``HydroniumRates`` (K closest with a distance transformation and a
+residence-time blend) build per-site neighbor tables, which the top-K event
+loop (``ops/topk_sweep.py``) combines with each replica's state. The
+``replica_omega`` of the scan engine waits for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -122,3 +127,96 @@ class AnglePairRates(PairRates):
         eye = torch.eye(n, dtype=torch.bool, device=d.device)
         valid = (d <= self.cutoff + self.buffer) & ~eye
         return DenseShared(W=torch.where(valid, self.law(d, ang), 0.0), dist=d)
+
+
+@dataclasses.dataclass
+class TopKShared:
+    """Replica-independent K-nearest geometry of one frame [N, K] or a block
+    [B, N, K]: raw distances (1e6 where invalid), distances after the
+    transformation (== dist without one), neighbor indices (int32) and
+    whether each slot is a real neighbor within cutoff+buffer."""
+
+    dist: torch.Tensor
+    dist_rescaled: torch.Tensor
+    nbr: torch.Tensor
+    valid: torch.Tensor
+
+
+def k_smallest(d: torch.Tensor, k: int):
+    """The k smallest entries of each row of ``d`` ([..., N]), ascending:
+    (dist [..., k], idx [..., k]), ties to the lowest index. A row with fewer
+    than k finite entries repeats index 0 with distance inf, as argmin over
+    an all-inf row gives it."""
+    iota = torch.arange(d.shape[-1], device=d.device)
+    inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
+    dists, idxs = [], []
+    for _ in range(k):
+        i = torch.argmin(d, dim=-1)  # first index on ties
+        dists.append(torch.gather(d, -1, i[..., None])[..., 0])
+        idxs.append(i)
+        d = torch.where(iota == i[..., None], inf, d)
+    return torch.stack(dists, dim=-1), torch.stack(idxs, dim=-1)
+
+
+class TopKRates(nn.Module):
+    """The K-nearest neighbor list of NeighborTopology: every donor's
+    min(k, N - 1) closest donors within cutoff+buffer. Host copies of the
+    box, cutoff + buffer (float32) and the cell geometry serve the kernels'
+    launches without a device sync."""
+
+    def __init__(self, cell: Cell, law: nn.Module, cutoff: float, buffer: float,
+                 k: int, transform: nn.Module | None = None,
+                 interpolator: nn.Module | None = None):
+        super().__init__()
+        self.cell = cell
+        self.law = law
+        self.k = int(k)
+        self.transform = transform
+        self.interpolator = interpolator
+        device = cell.h.device
+        self.register_buffer(
+            "cutoff", torch.tensor(float(cutoff), dtype=torch.float32, device=device))
+        self.register_buffer(
+            "buffer", torch.tensor(float(buffer), dtype=torch.float32, device=device))
+        self.box = (
+            tuple(torch.diagonal(cell.h).tolist()) if cell.orthorhombic else None
+        )
+        self.cutbuf = float(np.float32(cutoff) + np.float32(buffer))
+        self.host_buffer = float(np.float32(buffer))
+        self.geometry = cell.host_geometry()
+
+    def shared(self, frame: Frame) -> TopKShared:
+        """The tables of one frame ([N, 3] donors) or a block ([B, N, 3])."""
+        d = pairwise_distance_matrix(self.cell, frame.donors, self.box)
+        n = d.shape[-1]
+        eye = torch.eye(n, dtype=torch.bool, device=d.device)
+        d = torch.where(eye, float("inf"), d)
+        d = torch.where(d <= self.cutoff + self.buffer, d, float("inf"))
+        dist, nbr = k_smallest(d, min(self.k, n - 1))
+        valid = torch.isfinite(dist)
+        dist = torch.where(valid, dist, 1e6)
+        rescaled = self.transform(dist) if self.transform is not None else dist
+        return TopKShared(dist=dist, dist_rescaled=rescaled,
+                          nbr=nbr.to(torch.int32), valid=valid)
+
+
+class TopKPairRates(TopKRates):
+    """NeighborTopology with ``max_neighbors = k``: the rate law(d) over each
+    donor's K nearest (exactly PairRates where k covers every neighbor in
+    range)."""
+
+    def __init__(self, cell: Cell, law: nn.Module, cutoff: float, buffer: float,
+                 k: int = 8):
+        super().__init__(cell, law, cutoff, buffer, k)
+
+
+class HydroniumRates(TopKRates):
+    """HydroniumTopology: K-closest rates over distances rescaled by
+    ``transform`` (a DistanceTransformation, or None) and blended by
+    ``interpolator`` (a DistanceInterpolator: the time the occupying proton
+    has sat on its site; None is instantaneous)."""
+
+    def __init__(self, cell: Cell, law: nn.Module, cutoff: float, buffer: float,
+                 transform: nn.Module | None = None,
+                 interpolator: nn.Module | None = None, k: int = 4):
+        super().__init__(cell, law, cutoff, buffer, k, transform, interpolator)

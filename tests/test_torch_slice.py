@@ -14,9 +14,18 @@ in-kernel-W kernel with the angle gate, the port takes its in-kernel route
 (K3's plain version), with the same bounds. And the route rule as the
 driver applies it.
 
+The same for the top-K path (kernel K4's plain version, stage 1 by
+model.shared) on the first slice's trajectory: NeighborTopology with
+max_neighbors = 8, and HydroniumTopology (k = 4, a ReLU distance
+transformation, the residence-time blend), each printing every frame over 4
+frames with a reset at frame 2, so every launch spans one frame and the JAX
+kernel compiles once (in interpret mode on the CPU, several seconds, and
+about 0.7 s a frame); the JAX package runs its top-K Pallas kernel in
+interpret mode, rows layout. Same bounds.
+
 Also: the port's config loader against the JAX package's on every example
-INI, and an import of the port's driver and CLI that leaves jax out of
-sys.modules."""
+INI, and an import of the port's driver, CLI and kernel modules that leaves
+jax out of sys.modules."""
 
 import contextlib
 import dataclasses
@@ -39,6 +48,8 @@ from cmdlmc_tpu_torch import convert, driver as tdriver
 from cmdlmc_tpu_torch.config.schema import load_config as t_load_config
 from cmdlmc_tpu_torch.ops import kmc_sweep as ks
 from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+from cmdlmc_tpu_torch.ops import topk_sweep as ts
+from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
 from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 
 torch.set_num_threads(1)
@@ -171,9 +182,7 @@ def _route_counts():
         yield counts
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("slice")
+def _write_slice_traj(tmp):
     rng = np.random.RandomState(0)
     base = rng.uniform(0, 9.0, size=(32, 3))
     with open(tmp / "traj.xyz", "w") as f:
@@ -182,8 +191,44 @@ def runs(tmp_path_factory):
             f.write(f"32\nframe {i}\n")
             for x, y, z in pos:
                 f.write(f"O {x:14.8f} {y:14.8f} {z:14.8f}\n")
+    return tmp / "traj.xyz"
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice")
     ini = tmp / "slice.ini"
-    ini.write_text(INI.format(traj=tmp / "traj.xyz"))
+    ini.write_text(INI.format(traj=_write_slice_traj(tmp)))
+    return _both_drivers(ini)
+
+
+# the first slice's INI, printing every frame over 4 frames, with a reset at 2
+_EVERY_FRAME = INI.replace("print_frequency = 10\nreset_frequency = 20",
+                           "print_frequency = 1\nreset_frequency = 2").replace(
+    "backend = fused\n", "backend = fused\nsweeps = 4\n")
+TOPK_INI = _EVERY_FRAME.replace("buffer = 2.0\n", "buffer = 2.0\nmax_neighbors = 8\n")
+HYDRONIUM_INI = _EVERY_FRAME.replace("type = NeighborTopology\n", "type = HydroniumTopology\n").replace(
+    "buffer = 2.0\n", """buffer = 2.0
+neighbors = 4
+[DistanceTransformation]
+type = ReLUTransformation
+a = 0.5
+b = 2.2
+d0 = 2.2
+left_bound = 2.0
+right_bound = 3.3
+[DistanceInterpolator]
+relaxation_time = 2.0
+""")
+
+
+@pytest.fixture(scope="module", params=["topk", "hydronium"])
+def topk_runs(request, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp(request.param)
+    ini = tmp / "slice.ini"
+    text = TOPK_INI if request.param == "topk" else HYDRONIUM_INI
+    ini.write_text(text.format(traj=_write_slice_traj(tmp)))
+    ts.topk_sweep.launches = knn_block_tables.launches = 0
     return _both_drivers(ini)
 
 
@@ -244,6 +289,17 @@ def test_angle_rows_match_jax(angle_runs):
     _final_state_matches(angle_runs)
 
 
+def test_topk_rows_match_jax(topk_runs):
+    """max_neighbors = 8 and HydroniumTopology: the rows and the final state
+    of the JAX driver (its top-K kernel), the port on K4's plain version."""
+    _rows_match(topk_runs, list(range(4)))
+    _final_state_matches(topk_runs)
+    tsim = topk_runs[2]
+    assert type(tsim.model).__name__ in ("TopKPairRates", "HydroniumRates")
+    assert tsim.routes == {"inkernel": 0, "streamed": 0}
+    assert ts.topk_sweep.launches == 0 and knn_block_tables.launches == 0
+
+
 def test_route_rule(runs, angle_runs, tmp_path):
     """Both slices run 4 RNG tiles: every launch takes the in-kernel route,
     as the JAX package's did. At 16 tiles (64 replicas) the angle
@@ -298,12 +354,23 @@ def test_unsupported_features_raise(runs):
         ("engine", "checkpoint_path", "x.npz"),
         ("engine", "backend", "scan"),
         ("output", "jumpstat_bins", 4),
-        ("topology", "max_neighbors", 8),
+        ("atombox", "box_multiplier", (2, 2, 2)),
     ):
         bad = dataclasses.replace(
             cfg, **{section: dataclasses.replace(getattr(cfg, section),
                                                  **{field: value})})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdriver.Simulation(bad, device="cpu")
+    # Verlet candidate reuse on the top-K path: forced on, or at a lattice
+    # size where the auto rule turns it on
+    for engine, kmc in (({"nbr_reuse": "on"}, {}),
+                        ({"nbr_reuse": "auto"}, {"lattice_size": 1024,
+                                                 "proton_number": 12})):
+        bad = dataclasses.replace(
+            cfg, topology=dataclasses.replace(cfg.topology, max_neighbors=8),
+            engine=dataclasses.replace(cfg.engine, **engine),
+            kmc=dataclasses.replace(cfg.kmc, **kmc))
+        with pytest.raises(NotImplementedError, match="A15.*nbr_reuse = off"):
             tdriver.Simulation(bad, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -314,7 +381,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, cmdlmc_tpu_torch.driver, cmdlmc_tpu_torch.cli.mdmc, "
         "cmdlmc_tpu_torch.convert, cmdlmc_tpu_torch.ops.kmc_sweep, "
-        "cmdlmc_tpu_torch.topo.models\n"
+        "cmdlmc_tpu_torch.topo.models, cmdlmc_tpu_torch.ops.topk_sweep, "
+        "cmdlmc_tpu_torch.ops.knn_tables, cmdlmc_tpu_torch.topo.transforms\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'cmdlmc_tpu'))\n"
         "print(bad)\n"
