@@ -16,24 +16,33 @@ nonzero without the final ``ok`` line:
    0-4, against stage 1 + K1 on the same state, at 2-16 warps per block,
    and the two routes timed at 8, 16 and 128 RNG tiles;
 7. K5 (K-nearest tables) against its plain version at [B=100 and 256,
-   N=144] and [B=64, N=4608], k=8, timed there;
+   N=144] and [B=64, N=4608], k=8, timed there; K6 (the same tables over a
+   sparse plan) against its plain version and against K5 bit for bit at
+   the box x4 path's rebuild launch [1, 9216], at [64, 9216] and, with the
+   plan forced, [64, 4608], all timed there;
 8. K4 (top-K event loop) against its plain version: TopKPairRates k=8 and
    HydroniumRates k=4 (ReLU, relaxation time 20, the blend in the loop) at
    R=4096, B=100, N=144; law kinds 1-3 and a triclinic cell at R=256, B=16;
-   the supercell R=4096, B=16, N=4608, P=3072; timed at both sizes;
+   the supercells R=4096, B=16, N=4608, P=3072 and N=9216, P=6144, and
+   N=14976 at R=256, B=4 (K4's state in global scratch); timed at R=4096;
 9. end to end through ``driver.run_from_config`` on synthetic trajectories:
    the ``bench.py`` deployment (144 sites, 96 protons, 256-frame blocks) at
    16384 replicas (stage 1 + K1) and at 1024 (K3), the angle deployment of
    ``tools/bench_fused_variants.py`` (36 P atoms, FermiAngle) at 1024 (K3)
    and 4096 replicas (stage 1 + K1), that tool's top-K (k=8) and hydronium
    (k=4) deployments at 4096 replicas, and ``tools/bench_topk_e2e.py``'s
-   supercell (4608 sites, 3072 protons, 4096 replicas; K5 + K4), each with
-   its own launch counts; before them small dense, angle, top-K and
-   hydronium runs are held against the same runs on the CPU;
+   supercell (4608 sites, 3072 protons, 4096 replicas; K5 + K4), and the
+   box x4 supercell (bench.py's cell with box_multiplier = 4, 4, 4: 9216
+   sites, 6144 protons, 4096 replicas, Verlet candidate reuse by the auto
+   rule; K6 + K4), each with its own launch counts; before them small
+   dense, angle, top-K, hydronium and box x2 reuse runs are held against
+   the same runs on the CPU;
 10. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
-   rates) and the top-K supercell run traced with torch.profiler (device
-   busy and idle time, each kernel's share), and the host's xyz parse timed
-   alone.
+   rates) and the two top-K supercell runs traced with torch.profiler
+   (device busy and idle time, each kernel's share and the Verlet
+   epilogue's; for the box x4 run the idle time before the first K4 launch
+   apart from the gaps between launches, and the host ranges that fill
+   those gaps), and the host's xyz parse timed alone.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the end-to-end run of its path, its error against the plain
@@ -46,6 +55,7 @@ checkout.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import subprocess
@@ -74,6 +84,15 @@ RELU, RELAX = (0.5, 2.2, 2.2, 2.0, 3.3), 20.0
 # frames a random walk of 0.004 A per frame and coordinate
 SC_SITES, SC_PROTONS, SC_REPLICAS, SC_DRIFT = 4608, 3072, 4096, 0.004
 SC_BOX = BOX * (SC_SITES / N_SITES) ** (1.0 / 3.0)
+# the top-K supercell deployment with Verlet candidate reuse: bench.py's cell
+# as a random walk of SC_DRIFT, replicated 4 x 4 x 4 by box_multiplier (9216
+# sites, 6144 protons), max_neighbors = TOPK_K, [Engine] nbr_reuse left at
+# its default (auto), R = SC_REPLICAS
+BOX_MULT = (4, 4, 4)
+BX_SITES, BX_PROTONS, BX_BOX = N_SITES * 64, N_PROTONS * 64, BOX * 4
+# a site count past K4's shared-memory layout (16 N bytes > 232,448), so
+# its global layout runs
+WIDE_SITES = N_SITES * 104
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit),
 # for the least time the card could take for a kernel's work.
@@ -690,6 +709,17 @@ def _walk_block(n, frames, box, seed=0):
     return (base[None] + walk).astype(np.float32)
 
 
+def _box4_block(frames, seed=0):
+    """The supercell deployment's frames: bench.py's cell as a random walk
+    (:func:`_walk_block`), replicated by BOX_MULT as the driver does it."""
+    import torch
+
+    from cmdlmc_tpu_torch.core.cell import extended_positions
+
+    small = torch.from_numpy(_walk_block(N_SITES, frames, BOX, seed))
+    return extended_positions((BOX,) * 3, small, BOX_MULT).numpy()
+
+
 CUTBUF = CUTOFF + BUFFER  # 5.0, exact in float32
 
 
@@ -698,6 +728,31 @@ def knn_ops(n: int) -> float:
     (d(i,j) = d(j,i)) and cutoff test, and one compare per ordered pair to
     keep the k nearest of each column."""
     return n * (n - 1) / 2 * (PAIRWISE_OPS + 1) + n * (n - 1)
+
+
+def _knn_hold(what, pos, box3, gd, gi, wd, wi):
+    """K-nearest tables (gd, gi) of a kernel held to its plain version's
+    (wd, wi): indices equal except where the two candidates' distances lie
+    within an ulp of each other, distances within an ulp. Returns the
+    number of index partings and the largest distance error."""
+    import torch
+
+    parted = (gi != wi).nonzero().tolist()
+    for fb, s, j in parted[:64]:  # a parting must be a tie within an ulp
+
+        def dist(i):
+            d = pos[fb, i] - pos[fb, j]
+            d = d - torch.tensor(box3, device=pos.device) * torch.round(d / box3[0])
+            return float(torch.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]))
+
+        a, c = dist(int(gi[fb, s, j])), dist(int(wi[fb, s, j]))
+        if abs(a - c) > 2.4e-7 * max(a, c):
+            raise AssertionError(f"{what} parts at ({fb}, {s}, {j}) "
+                                 f"away from a tie: {a} vs {c}")
+    err = float((gd - wd).abs().max())
+    if not torch.allclose(gd, wd, rtol=2.4e-7, atol=0):
+        raise AssertionError(f"{what} distances differ by more than an ulp: {err}")
+    return len(parted), err
 
 
 def phase_k5(dev):
@@ -719,30 +774,98 @@ def phase_k5(dev):
         ms, (gd, gi) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=5)
         plain_ms, (wd, wi) = cuda_ms(
             lambda: knn_block_tables_reference(pos, box3, CUTBUF, k), reps=1)
-        parted = (gi != wi).nonzero().tolist()
-        for fb, s, j in parted[:64]:  # a parting must be a tie within an ulp
-
-            def dist(i):
-                d = pos[fb, i] - pos[fb, j]
-                d = d - torch.tensor(box3, device=dev) * torch.round(d / box)
-                return float(torch.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]))
-
-            a, c = dist(int(gi[fb, s, j])), dist(int(wi[fb, s, j]))
-            if abs(a - c) > 2.4e-7 * max(a, c):
-                raise AssertionError(f"K5 [{b},{n}] parts at ({fb}, {s}, {j}) "
-                                     f"away from a tie: {a} vs {c}")
-        err = float((gd - wd).abs().max())
+        parted, err = _knn_hold(f"K5 [{b},{n}]", pos, box3, gd, gi, wd, wi)
         worst = max(worst, err)
-        if not torch.allclose(gd, wd, rtol=2.4e-7, atol=0):
-            raise AssertionError(f"K5 [{b},{n}] distances differ by more than an ulp: {err}")
         b_ = bound(b * knn_ops(n), 4.0 * b * n * 3 + 8.0 * b * k * n)
-        say(f"[k5] [B={b}, N={n}, k={k}]: {len(parted)} index partings (ties within "
+        say(f"[k5] [B={b}, N={n}, k={k}]: {parted} index partings (ties within "
             f"an ulp), max |kernel - plain| distance {err:.3e}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.3f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
         if b == PRINT_FREQ:
             # no single PyTorch call computes it: torch.cdist has no periodic
             # images and torch.topk no first-lowest-index tie rule
             result = {"ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+    result["max_abs_err"] = worst
+    return result
+
+
+def knn_sparse_ops(plan, n: int) -> float:
+    """K6's least operations per frame over a sparse plan, counted as
+    knn_ops counts K5's: the distance and cutoff test of each unordered pair
+    that one of its two (tile, chunk) pairs keeps (d(i,j) = d(j,i)), and one
+    compare per ordered kept (column, row) pair but self. Returns the
+    operations and the share of all unordered pairs that the plan keeps."""
+    import math
+
+    import numpy as np
+
+    g = math.gcd(plan.rc, plan.tc)  # each g-block lies in one tile and one chunk
+    first = np.arange(0, n, g)
+    size = np.minimum(g, n - first).astype(np.float64)
+    keep = np.zeros((plan.lists.shape[0], plan.n_ch), dtype=bool)
+    for t, chunks in enumerate(plan.lists):
+        keep[t, chunks[chunks < plan.n_ch]] = True
+    ordered = keep[first // plan.tc][:, first // plan.rc]  # [column block, row block]
+    either = ordered | ordered.T
+    w = np.outer(size, size)
+    unordered = (w * np.triu(either, 1)).sum() + (either.diagonal() * size * (size - 1) / 2).sum()
+    compares = (w * ordered).sum() - (ordered.diagonal() * size).sum()
+    return float(unordered * (PAIRWISE_OPS + 1) + compares), unordered / (n * (n - 1) / 2)
+
+
+def phase_k6(dev):
+    """K6 against its plain version (as K5 is held to its own) and against
+    K5, which it must equal bit for bit: at the box x4 path's own launch, a
+    rebuild's one frame [1, 9216] over that frame's plan; at [64, 9216]
+    (bench.py's cell replicated 4 x 4 x 4, the JAX gate open); and at
+    [64, 4608] (tools/bench_topk_e2e.py's supercell, the gate closed there,
+    so the plan is forced). K6 and K5 timed in turns (K6, K5, K5, K6) at
+    each shape, the host plan timed for each."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import knn_sparse as kns
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
+
+    k, worst, result = TOPK_K, 0.0, {}
+    box4 = _box4_block(64)
+    for b, n, box, forced in ((1, BX_SITES, BX_BOX, False), (64, BX_SITES, BX_BOX, False),
+                              (64, SC_SITES, SC_BOX, True)):
+        block = box4[:b] if n == BX_SITES else _walk_block(n, b, box)
+        pos = torch.from_numpy(block).to(dev)
+        box3 = (box,) * 3
+        gate = dict(min_n=0, max_ratio=1.0) if forced else {}
+        shape = f"[{b},{n}]{' (gate forced)' if forced else ''}"
+        t0 = time.perf_counter()
+        plan = kns.sparse_plan_for(pos, box3, CUTBUF, **gate)
+        plan_s = time.perf_counter() - t0
+        if plan is None or (kns.sparse_plan_for(pos, box3, CUTBUF) is None) != forced:
+            raise AssertionError(f"K6 {shape}: the plan's gate is not as expected")
+        reps = 20 if b == 1 else 5
+        a1, (d6, i6) = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan),
+                               reps=reps)
+        b1, (d5, i5) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=reps)
+        b2, _ = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=reps)
+        a2, _ = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan), reps=reps)
+        plain_ms, (wd, wi) = cuda_ms(
+            lambda: kns.knn_sparse_tables_reference(pos, box3, CUTBUF, k, plan), reps=1)
+        n_i = int((i6 != i5).sum())
+        n_d = int((d6.view(torch.int32) != d5.view(torch.int32)).sum())
+        say(f"[k6] {shape} k={k}: K6 vs K5 {n_i} differing indices, {n_d} differing "
+            f"distances (bit for bit)")
+        if n_i or n_d:
+            raise AssertionError(f"K6 {shape} differs from K5")
+        parted, err = _knn_hold(f"K6 {shape}", pos, box3, d6, i6, wd, wi)
+        worst = max(worst, err)
+        ops, share = knn_sparse_ops(plan, n)
+        b_ = bound(b * ops, 4.0 * b * n * 3 + 8.0 * b * k * n)
+        say(f"[k6] {shape}: plan keeps {plan.lists.shape[1]} of {plan.n_ch} chunks per "
+            f"tile at most (ratio {plan.ratio:.3f}), {share:.4f} of the unordered "
+            f"pairs; host plan {1e3 * plan_s:.1f} ms; {parted} index partings against "
+            f"the plain version (ties within an ulp), max distance error {err:.3e}")
+        say(f"[k6] {shape}: K6 {a1:.4f} / {a2:.4f} ms, K5 {b1:.4f} / {b2:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, K6 bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+        if b == 1:
+            # no single PyTorch call computes it (see phase_k5)
+            result = {"ms": a1, "plain_ms": plain_ms, **b_, "library_ms": None}
     result["max_abs_err"] = worst
     return result
 
@@ -755,9 +878,11 @@ TRICLINIC_VECTORS = ((BOX, 0.0, 0.0), (0.2 * BOX, BOX, 0.0), (0.15 * BOX, 0.1 * 
 def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
     """A top-K model ("topk": TopKPairRates k=8 with law kind `kind`;
     "hydronium": HydroniumRates k=4, ReLU, the blend; "supercell": the
-    TopKPairRates of tools/bench_topk_e2e.py), a block of its frames, its
-    stage-1 tables, random replica state [prev, s, occ, labels, sites, tlast,
-    tlast_site, disp_base, u, evc] and the sweep's keywords."""
+    TopKPairRates of tools/bench_topk_e2e.py; "box4": that of the box x4
+    supercell deployment; "wide": WIDE_SITES sites at bench.py's density),
+    a block of its frames, its stage-1 tables, random replica state [prev,
+    s, occ, labels, sites, tlast, tlast_site, disp_base, u, evc] and the
+    sweep's keywords."""
     import numpy as np
     import torch
 
@@ -767,9 +892,14 @@ def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
     from cmdlmc_tpu_torch.topo.models import HydroniumRates, TopKPairRates
     from cmdlmc_tpu_torch.topo.transforms import DistanceInterpolator, ReLUTransformation
 
-    n, protons, box = ((SC_SITES, SC_PROTONS, SC_BOX) if name == "supercell"
-                       else (N_SITES, N_PROTONS, BOX))
-    if name == "supercell":
+    n, protons, box = {"supercell": (SC_SITES, SC_PROTONS, SC_BOX),
+                       "box4": (BX_SITES, BX_PROTONS, BX_BOX),
+                       "wide": (WIDE_SITES, N_PROTONS * WIDE_SITES // N_SITES,
+                                BOX * (WIDE_SITES / N_SITES) ** (1.0 / 3.0)),
+                       }.get(name, (N_SITES, N_PROTONS, BOX))
+    if name == "box4":
+        block = _box4_block(frames, seed)
+    elif name in ("supercell", "wide"):
         block = _walk_block(n, frames, box, seed)
     elif triclinic:
         rng = np.random.RandomState(seed)
@@ -903,21 +1033,31 @@ def phase_k4(dev):
     """K4 against topk_sweep_reference on the same tables: TopKPairRates k=8
     (Fermi) and HydroniumRates k=4 (the blend in the loop) at the top-K
     path's launch shape R=4096, B=100, N=144, timed there; law kinds 1-3 and
-    a triclinic cell at R=256, B=16; the supercell at R=4096, B=16, N=4608,
-    P=3072 (RNG tile from pick_tile_topk), timed there."""
+    a triclinic cell at R=256, B=16; the supercells at R=4096, B=16: N=4608,
+    P=3072 and the box x4 deployment's N=9216, P=6144 (RNG tile from
+    pick_tile_topk), timed there; N=WIDE_SITES at R=256, B=4, where the
+    global layout runs (K4's state in global scratch)."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
     worst, result = 0.0, {}
     cases = [("topk", TOPK_REPLICAS, PRINT_FREQ, 0, False),
              ("hydronium", TOPK_REPLICAS, PRINT_FREQ, 0, False),
              ("topk", 256, 16, 1, False), ("topk", 256, 16, 2, False),
              ("topk", 256, 16, 3, False), ("topk", 256, 16, 0, True),
-             ("supercell", SC_REPLICAS, 16, 0, False)]
+             ("supercell", SC_REPLICAS, 16, 0, False),
+             ("box4", SC_REPLICAS, 16, 0, False), ("wide", 256, 4, 0, False)]
+    want_layout = {N_SITES: "shared", SC_SITES: "shared", BX_SITES: "shared",
+                   WIDE_SITES: "global"}
     for name, R, B, kind, tri in cases:
         model, pos, tables, state, kw = _k4_inputs(dev, R, B, name, kind, tri, seed=kind)
         N, P, K = pos.shape[1], state[4].shape[1], tables[0].shape[1]
+        layout = "global" if ts.sweep_scratch_bytes(R, N, K, kw["blend"], dev) else "shared"
         label = (f"{name} k={K} kind {kind}{' triclinic' if tri else ''} R={R} B={B} "
-                 f"N={N} TR={kw['tile']}")
+                 f"N={N} TR={kw['tile']} layout {layout!r}")
+        if layout != want_layout[N]:
+            raise AssertionError(f"K4 {label}: expected the {want_layout[N]!r} layout")
         timed = R == TOPK_REPLICAS
-        frame0 = 0 if timed else 500
+        frame0 = 0 if timed or name == "wide" else 500
         ms, got = cuda_ms(lambda: _k4_call(model, pos, tables, state, frame0, **kw),
                           reps=3 if timed else 1)
         plain_ms, want = cuda_ms(
@@ -947,18 +1087,24 @@ def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
     (max_neighbors = TOPK_K) or "hydronium" (HydroniumTopology, HYD_K
     neighbors, the RELU transformation, relaxation time RELAX); "supercell"
     is tools/bench_topk_e2e.py's (SC_SITES sites in the SC_BOX cube, frames a
-    random walk, SC_PROTONS protons, max_neighbors = TOPK_K, nbr_reuse off)."""
+    random walk, SC_PROTONS protons, max_neighbors = TOPK_K, nbr_reuse off);
+    "box4" is bench.py's cell as a random walk, replicated by
+    box_multiplier = BOX_MULT (max_neighbors = TOPK_K, nbr_reuse at its
+    default, auto); "box2" the same cell replicated 2 x 2 x 2 with
+    nbr_reuse = on."""
     import numpy as np
 
     workdir.mkdir(parents=True, exist_ok=True)
     supercell = topk == "supercell"
-    tag = "angle_" if angle else "sc_" if supercell else ""
+    mult = {"box4": BOX_MULT, "box2": (2, 2, 2)}.get(topk, (1, 1, 1))
+    walk = supercell or mult != (1, 1, 1)
+    tag = "angle_" if angle else "sc_" if supercell else "walk_" if walk else ""
     n_sites, protons, box = ((SC_SITES, SC_PROTONS, SC_BOX) if supercell
                              else (N_SITES, N_PROTONS, BOX))
     traj = workdir / f"traj_{tag}{frames}.xyz"
     if not traj.exists():
         rng = np.random.RandomState(0)
-        if supercell:
+        if walk:
             block = _walk_block(n_sites, frames, box)
             names = np.array(["O"] * n_sites)
         else:
@@ -1002,6 +1148,7 @@ relaxation_time = {RELAX}
         law = "type = Fermi"
     else:
         topology, law = "type = NeighborTopology\ndonor_atoms = O", "type = Fermi"
+    copies = mult[0] * mult[1] * mult[2]
     name = f"run_{tag}{topk}{frames}_{replicas}{'_stale' if stale else ''}.ini"
     cfg = workdir / name
     cfg.write_text(f"""[Trajectory]
@@ -1010,6 +1157,7 @@ time_step = {DT}
 [AtomBox]
 type = AtomBoxCubic
 periodic_boundaries = {box}, {box}, {box}
+box_multiplier = {", ".join(str(m) for m in mult)}
 [NeighborTopology]
 {topology}
 cutoff = {CUTOFF}
@@ -1020,8 +1168,8 @@ a = {FERMI[0]}
 b = {FERMI[1]}
 c = {FERMI[2]}
 [KMCLattice]
-lattice_size = {n_sites}
-proton_number = {protons}
+lattice_size = {n_sites * copies}
+proton_number = {protons * copies}
 time_step = {DT}
 [Output]
 type = ObservablesOutput
@@ -1034,7 +1182,7 @@ block_size = {BLOCK}
 max_events_per_frame = {MAX_EVENTS}
 {f"sweeps = {sweeps}" if sweeps else ""}
 {"stale_rates = on" if stale else ""}
-{"nbr_reuse = off" if supercell else ""}
+{"nbr_reuse = off" if supercell else "nbr_reuse = on" if topk == "box2" else ""}
 """)
     return cfg
 
@@ -1052,12 +1200,14 @@ def _counters():
     from cmdlmc_tpu_torch.ops import kmc_sweep as ks
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
+    from cmdlmc_tpu_torch.ops.knn_sparse import knn_sparse_tables
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
     from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 
     return {"kmc_sweep_streamed": kss.kmc_sweep_streamed,
             "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep,
-            "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables}
+            "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables,
+            "knn_sparse": knn_sparse_tables}
 
 
 def _small_cuda_vs_cpu(label, cfg):
@@ -1072,7 +1222,7 @@ def _small_cuda_vs_cpu(label, cfg):
     same = ((a.site_of_proton.cpu() == b.site_of_proton).all(dim=1)
             & (a.clock.event_count.cpu() == b.clock.event_count))
     n_diff, n = int((~same).sum()), same.numel()
-    say(f"[e2e] small {label} run (N={N_SITES}, R={n}): {n_diff} of {n} "
+    say(f"[e2e] small {label} run (N={a.occ.shape[1]}, R={n}): {n_diff} of {n} "
         f"replicas end differently on cuda vs cpu; events "
         f"{int(a.clock.event_count.sum())} vs {int(b.clock.event_count.sum())}")
     if n_diff > 2 or int(b.clock.event_count.sum()) == 0:
@@ -1142,6 +1292,8 @@ def phase_end_to_end(card: str):
                                              angle=True))
     for topk in ("topk", "hydronium"):
         _small_cuda_vs_cpu(topk, write_inputs(WORK, frames=64, replicas=256, topk=topk))
+    _small_cuda_vs_cpu("box x2 reuse on", write_inputs(WORK, frames=64, replicas=256,
+                                                       topk="box2"))
     paths = {}
     paths["dense R=16384"] = _drive(
         "dense R=16384", write_inputs(WORK, frames=1024, replicas=REPLICAS),
@@ -1174,7 +1326,33 @@ def phase_end_to_end(card: str):
         write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="supercell"),
         card, 512, SC_REPLICAS, expect=("topk_sweep", "knn_tables"), refuse=dense,
         n_sites=SC_SITES, protons=SC_PROTONS)
+    paths[BOX4] = _drive_box4(card)
     return paths
+
+
+BOX4 = "topk supercell N=9216 box x4 reuse"
+
+
+def _drive_box4(card: str):
+    """The supercell deployment end to end: K4 and K6 launch (K6 at the
+    rebuilds of Verlet candidate reuse, which the auto rule turns on), the
+    dense kernels do not; prints the rebuild frames and K5's launches."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    cfg = write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4")
+    if "nbr_reuse" in cfg.read_text():
+        raise AssertionError(f"{BOX4}: the config must leave nbr_reuse at its default")
+    ts.topk_tables_verlet.rebuild_frames = 0
+    launches = _drive(BOX4, cfg, card, 512, SC_REPLICAS,
+                      expect=("topk_sweep", "knn_sparse"),
+                      refuse=("kmc_sweep_streamed", "pairwise_cubic", "kmc_sweep"),
+                      n_sites=BX_SITES, protons=BX_PROTONS)
+    rebuilds = ts.topk_tables_verlet.rebuild_frames
+    say(f"[e2e] {BOX4}: {rebuilds} rebuild frames of 512, knn_sparse launches "
+        f"{launches['knn_sparse']}, knn_tables launches {launches['knn_tables']}")
+    if not 0 < rebuilds < 512:
+        raise AssertionError(f"{BOX4}: Verlet reuse rebuilt {rebuilds} of 512 frames")
+    return launches
 
 
 def _union_us(intervals) -> float:
@@ -1187,12 +1365,155 @@ def _union_us(intervals) -> float:
     return total
 
 
+VERLET_RANGE = "verlet_tables"
+
+
+def _host_ranges():
+    """(object, attribute, range name, kind) of the driver's host stages
+    that phase_profile wraps in profiler ranges: kind "call" for a
+    function, "iter" for a method returning an iterator (the range covers
+    each ``next``), "gen" for a generator method (the range covers its
+    whole run)."""
+    from cmdlmc_tpu_torch import driver
+    from cmdlmc_tpu_torch.engine import fused as eng_fused
+    from cmdlmc_tpu_torch.engine import lattice as eng
+    from cmdlmc_tpu_torch.ops import knn_sparse as kns
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    return [(eng, "init_replicas", "init_replicas", "call"),
+            (driver.Simulation, "_blocks", "next_block", "iter"),
+            (eng_fused, "run_block_fused", "run_block", "call"),
+            (ts, "topk_tables_verlet", VERLET_RANGE, "call"),
+            (kns, "sparse_plan_for", "sparse_plan", "call"),
+            (driver.Simulation, "_fused_post", "fused_post", "call"),
+            (driver.Simulation, "_emit_fused", "emit_rows", "gen")]
+
+
+@contextlib.contextmanager
+def _annotated():
+    """Run the host stages of :func:`_host_ranges` inside profiler ranges of
+    their names, for :func:`_verlet_epilogue_ms` and :func:`_idle_report`
+    (the port itself carries no annotation). A wrapped function's
+    attributes (a launch or rebuild counter) are carried over and back."""
+    from torch.profiler import record_function
+
+    def wrap(inner, name, kind):
+        if kind == "iter":
+            def annotated(*args, **kwargs):
+                it = iter(inner(*args, **kwargs))
+                while True:
+                    with record_function(name):
+                        item = next(it, it)
+                    if item is it:
+                        return
+                    yield item
+        elif kind == "gen":
+            def annotated(*args, **kwargs):
+                with record_function(name):
+                    items = list(inner(*args, **kwargs))
+                yield from items
+        else:
+            def annotated(*args, **kwargs):
+                with record_function(name):
+                    return inner(*args, **kwargs)
+        annotated.__dict__.update(inner.__dict__)
+        return annotated
+
+    patched = []
+    try:
+        for obj, attr, name, kind in _host_ranges():
+            inner = getattr(obj, attr)
+            setattr(obj, attr, wrap(inner, name, kind))
+            patched.append((obj, attr, inner))
+        yield
+    finally:
+        for obj, attr, inner in reversed(patched):
+            inner.__dict__.update(getattr(obj, attr).__dict__)
+            setattr(obj, attr, inner)
+
+
+def _overlap_us(spans, intervals) -> float:
+    """Time of the (start, end) spans that lies in the disjoint intervals."""
+    return sum(max(0.0, min(b, d) - max(a, c)) for a, b in spans for c, d in intervals)
+
+
+def _idle_report(all_events, device_events, main_kernel):
+    """Where the traced run's device idles: before the first launch of
+    `main_kernel`, between its first and last launch, and after; for the
+    first two, the time of each host range of :func:`_host_ranges` that
+    overlaps the idle time (ranges nest: run_block holds verlet_tables, which
+    holds sparse_plan) and the idle time that no range covers. Returns text."""
+    host = [e for e in all_events if e.get("ph") == "X" and "dur" in e
+            and e.get("cat") in ("cpu_op", "user_annotation", "cuda_runtime")]
+    t_begin = min(e["ts"] for e in host)
+    t_end = max(max(e["ts"] + e["dur"] for e in host),
+                max(e["ts"] + e["dur"] for e in device_events))
+    idle, end = [], t_begin
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device_events):
+        if a > end:
+            idle.append((end, a))
+        end = max(end, b)
+    if t_end > end:
+        idle.append((end, t_end))
+    mains = [(e["ts"], e["ts"] + e["dur"]) for e in device_events
+             if main_kernel in e["name"]]
+    first, last = min(a for a, _ in mains), max(b for _, b in mains)
+
+    def clip(lo, hi):
+        return [(max(a, lo), min(b, hi)) for a, b in idle if min(b, hi) > max(a, lo)]
+
+    ranges = {}
+    for e in all_events:
+        if e.get("cat") == "user_annotation" and "dur" in e:
+            ranges.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    names = [name for _, _, name, _ in _host_ranges() if name in ranges]
+    covered = [span for spans in ranges.values() for span in spans]
+
+    def breakdown(parts):
+        total = sum(b - a for a, b in parts)
+        free = total - _union_us(
+            (max(a, c), min(b, d)) for a, b in covered for c, d in parts
+            if min(b, d) > max(a, c))
+        shares = [f"{name} {_overlap_us(ranges[name], parts) / 1e3:.2f}" for name in names]
+        return total, f"{', '.join(shares)}, in no range {free / 1e3:.2f} ms"
+
+    head, head_by = breakdown(clip(t_begin, first))
+    between = clip(first, last)
+    mid, mid_by = breakdown(between)
+    tail = sum(b - a for a, b in clip(last, t_end))
+    big = sorted((b - a for a, b in between), reverse=True)
+    return (f"idle before the first {main_kernel} launch {head / 1e3:.2f} ms "
+            f"({head_by}); between its launches {mid / 1e3:.2f} ms in "
+            f"{sum(g >= 1e3 for g in big)} gaps of 1 ms or more (largest "
+            f"{', '.join(f'{g / 1e3:.2f}' for g in big[:4])} ms; {mid_by}); "
+            f"after the last {tail / 1e3:.2f} ms")
+
+
+def _verlet_epilogue_ms(events, knn_kernels) -> float:
+    """Device time of the kernels launched inside VERLET_RANGE, but for
+    the K-nearest kernels of the rebuilds: the drift tests and the
+    frozen-id distances and gathers (matched by the launch's correlation
+    id)."""
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == VERLET_RANGE and e.get("cat") == "user_annotation"]
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] <= b for a, b in ranges)}
+    return sum(e["dur"] for e in events
+               if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in corr
+               and not any(k in e["name"] for k in knn_kernels)) / 1e3
+
+
 def phase_profile(card: str):
     """Where the end-to-end run's time goes: the bench.py deployment with
-    fresh and with stale rates, and the top-K supercell, each traced with
+    fresh and with stale rates, and both top-K supercells, each traced with
     torch.profiler after a warm run. Device busy time is the union of kernel
     and copy intervals in the trace; idle is the rest of the traced wall
-    time. Also times the host's xyz parse of the dense trajectory alone."""
+    time; the box x4 run's Verlet epilogue is the device time launched from
+    its stage 1 but for K5 and K6. Each run's idle time is split at the
+    first and last launch of its main kernel (K1, K4) and laid against the
+    driver's host stages (:func:`_idle_report`). Also times the host's xyz
+    parse of the dense trajectory alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1207,25 +1528,29 @@ def phase_profile(card: str):
     say(f"[profile] host xyz parse of {frames} frames x {N_SITES} atoms: "
         f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
     dense = {"K1": "kmc_sweep_streamed_kernel", "K2": "pairwise_kernel"}
+    knn = {"K5": "knn_tables_kernel", "K6": "knn_sparse_kernel"}
     runs = [("fresh", write_inputs(WORK, frames=1024, replicas=REPLICAS), dense),
             ("stale", write_inputs(WORK, frames=1024, replicas=REPLICAS, stale=True),
              dense),
             ("supercell", write_inputs(WORK, frames=512, replicas=SC_REPLICAS,
                                        topk="supercell"),
-             {"K4": "topk_sweep_kernel", "K5": "knn_tables_kernel"})]
+             {"K4": "topk_sweep_kernel", "K5": "knn_tables_kernel"}),
+            ("box4", write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4"),
+             {"K4": "topk_sweep_kernel", **knn})]
     for name, cfg, kernels in runs:
         driver.run_from_config(cfg, out=io.StringIO(), device="cuda")  # warm
         torch.cuda.synchronize()
         buf = io.StringIO()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _annotated(), profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             driver.run_from_config(cfg, out=buf, device="cuda")
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         trace = WORK / f"e2e_trace_{name}.json"
         prof.export_chrome_trace(str(trace))
-        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+        all_events = json.loads(trace.read_text())["traceEvents"]
+        events = [e for e in all_events
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                   and "dur" in e]
         if not events:
@@ -1237,6 +1562,11 @@ def phase_profile(card: str):
             ms = sum(e["dur"] for e in events if kname in e["name"]) / 1e3
             rest -= ms
             shares.append(f"{tag} {ms:.3f} ms ({100 * ms / busy:.2f}% of busy)")
+        epilogue = _verlet_epilogue_ms(all_events, knn.values())
+        if epilogue:
+            rest -= epilogue
+            shares.append(f"Verlet epilogue {epilogue:.3f} ms "
+                          f"({100 * epilogue / busy:.2f}% of busy)")
         perf = [ln for ln in buf.getvalue().splitlines()
                 if ln.startswith("# perf:")]
         say(f"[profile] {name}: traced wall {wall_ms:.2f} ms, device busy "
@@ -1245,6 +1575,9 @@ def phase_profile(card: str):
             + f", other device work {100 * rest / busy:.2f}% ({card})")
         say(f"[profile] {name}: {perf[0] if perf else 'no perf line'}; "
             f"trace {trace}")
+        main_tag, main_kernel = next(iter(kernels.items()))
+        say(f"[profile] {name}: {main_tag} ({main_kernel}) "
+            f"{_idle_report(all_events, events, main_kernel)}")
 
 
 def main() -> int:
@@ -1255,7 +1588,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace the dense end-to-end run (fresh and "
-                         "stale rates) and the top-K supercell with "
+                         "stale rates) and the top-K supercells with "
                          "torch.profiler and print where the device time "
                          "goes")
     opts = ap.parse_args()
@@ -1290,6 +1623,7 @@ def main() -> int:
     k1 = phase_k1(dev)
     k3 = phase_k3(dev)
     k5 = phase_k5(dev)
+    k6 = phase_k6(dev)
     k4 = phase_k4(dev)
     paths = phase_end_to_end(card)
     if opts.profile:
@@ -1297,7 +1631,7 @@ def main() -> int:
 
     # each kernel's launches in the end-to-end run of its own path: K1 and
     # K2 on the main path (R=16384), K3 on the in-kernel route (R=1024), K4
-    # and K5 on the top-K path (R=4096)
+    # and K5 on the top-K path (R=4096), K6 on the box x4 supercell
     main_path, inkernel_path = paths["dense R=16384"], paths["dense R=1024"]
     topk_path = paths[f"topk R={TOPK_REPLICAS}"]
     kernels = [
@@ -1321,6 +1655,10 @@ def main() -> int:
          "source": "cmdlmc_tpu_torch/csrc/knn_tables.cu",
          "replaces": "cmdlmc_tpu/ops/knn_tables.py:122",
          "launches": topk_path["knn_tables"], **k5},
+        {"name": "knn_sparse", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/knn_sparse.cu",
+         "replaces": "cmdlmc_tpu/ops/knn_sparse.py:293",
+         "launches": paths[BOX4]["knn_sparse"], **k6},
     ]
     say(f"[e2e] launches by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,7 @@ import torch
 
 from cmdlmc_tpu_torch.core.cell import Cell
 from cmdlmc_tpu_torch.engine.clock import ClockState
-from cmdlmc_tpu_torch.engine.lattice import EnsembleState, ReplicaState
+from cmdlmc_tpu_torch.engine.lattice import EnsembleState, NeighborCarry, ReplicaState
 from cmdlmc_tpu_torch.rates import laws
 from cmdlmc_tpu_torch.topo import transforms
 from cmdlmc_tpu_torch.topo.models import (
@@ -26,9 +26,25 @@ def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
 
-def ensemble_from_numpy(ens, device="cpu") -> EnsembleState:
-    """The port's EnsembleState from the fields of a JAX ``EnsembleState``.
-    Jump histograms and the jump matrix must be empty (ROADMAP A11)."""
+def neighbor_carry_from_fields(carry, k: int, device="cpu") -> NeighborCarry:
+    """The port's NeighborCarry from a JAX ``NeighborCarry``: its first
+    ``k`` = min(max_neighbors, N - 1) rows (the JAX package pads the lists
+    to whole float32 tiles and keeps the ids as floats)."""
+    return NeighborCarry(
+        ref_pos=_t(carry.ref_pos, device, np.float32),
+        ref_topi=_t(np.rint(np.asarray(carry.ref_topi)[:k]), device, np.int32),
+        ref_valid=_t(np.asarray(carry.ref_valid)[:k] > 0.5, device),
+        thresh=float(carry.thresh),
+        last_rebuild=float(carry.last_rebuild),
+        thrash_until=float(carry.thrash_until),
+    )
+
+
+def ensemble_from_numpy(ens, device="cpu", k: int | None = None) -> EnsembleState:
+    """The port's EnsembleState from the fields of a JAX ``EnsembleState``;
+    a neighbor carry comes over with its first ``k`` rows
+    (:func:`neighbor_carry_from_fields`). Jump histograms and the jump matrix
+    must be empty (ROADMAP A11)."""
     rep = ens.replicas
     for name in ("jump_hist", "opportunity_hist", "jump_matrix"):
         field = getattr(rep, name, None)
@@ -53,10 +69,16 @@ def ensemble_from_numpy(ens, device="cpu") -> EnsembleState:
         disp_base=_t(rep.disp_base, device, f32),
         autocorr_ref=_t(rep.autocorr_ref, device, i32),
     )
+    carry = getattr(ens, "nbr_carry", None)
+    if carry is not None:
+        if k is None:
+            raise ValueError("a state with a neighbor carry needs k")
+        carry = neighbor_carry_from_fields(carry, k, device)
     return EnsembleState(
         replicas=replicas,
         site_disp=_t(ens.site_disp, device, f32),
         prev_pos=_t(ens.prev_pos, device, f32),
+        nbr_carry=carry,
     )
 
 

@@ -150,6 +150,24 @@ def _dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1] + u[..., 2] * v[..., 2]
 
 
+def extended_positions(base_cell_vectors, positions: torch.Tensor,
+                       multiplier) -> torch.Tensor:
+    """Positions of the virtual supercell, [..., n, 3] -> [..., M n, 3] with
+    M = mx my mz: ``index = box_index * n + atom_index``, box_index row-major
+    over (mx, my, mz) (``cmdlmc_tpu/core/cell.py::extended_positions``, in
+    its float32 order: shift (i v0 + j v1) + k v2, then shift + position).
+    ``base_cell_vectors`` holds the unextended cell vectors as rows (3 box
+    lengths for a cubic cell)."""
+    base = np.asarray(base_cell_vectors, np.float32)
+    v = torch.as_tensor(np.diag(base) if base.size == 3 else base.reshape(3, 3),
+                        dtype=positions.dtype, device=positions.device)
+    mx, my, mz = (int(m) for m in multiplier)
+    shifts = torch.stack([i * v[0] + j * v[1] + k * v[2] for i in range(mx)
+                          for j in range(my) for k in range(mz)])  # [M, 3]
+    out = shifts[:, None, :] + positions[..., None, :, :]  # [..., M, n, 3]
+    return out.reshape(*positions.shape[:-2], -1, 3)
+
+
 def angle(cell: Cell, r1: torch.Tensor, r2: torch.Tensor, r3: torch.Tensor) -> torch.Tensor:
     """Angle (radians) at vertex ``r2`` between ``r1`` and ``r3`` under PBC:
     the angle between the minimum-image vectors r1 - r2 and r3 - r2. The

@@ -1,5 +1,5 @@
 // Device helpers shared by the kernels: warp reductions (K1, K3, K4), the
-// minimum image (K1-K5), the site-displacement prefix step (K1, K3, K4) and
+// minimum image (K1-K6), the site-displacement prefix step (K1, K3, K4) and
 // the rate laws evaluated inside a kernel (K3, K4).
 //
 // Numerics: every including source builds with --fmad=false and without fast
@@ -32,6 +32,18 @@ __device__ inline void warp_argmax(float& v, int& idx) {
 
 __host__ __device__ inline float minimg(float d, float len) {
   return d - len * rintf(d / len);
+}
+
+// Squared length of the orthorhombic minimum image of (dx, dy, dz), summed
+// (x^2 + y^2) + z^2: the one form the K-nearest kernels (K5, K6) share, so
+// their distances agree bit for bit.
+__device__ inline float minimg_sq(float dx, float dy, float dz, float lx,
+                                  float ly, float lz) {
+  dx = minimg(dx, lx);
+  dy = minimg(dy, ly);
+  dz = minimg(dz, lz);
+  const float acc = dx * dx + dy * dy;
+  return acc + dz * dz;
 }
 
 // The round-based minimum image of a 3-vector: per axis for an orthorhombic
@@ -95,6 +107,21 @@ __device__ inline void advance_prefix(float* s, float* cur, const float* post,
     cur[3 * i] = p[0];
     cur[3 * i + 1] = p[1];
     cur[3 * i + 2] = p[2];
+  }
+}
+
+// The same step with the previous frame's positions read where they lie
+// (K4 reads both frames from global memory): s += minimg(post - prev).
+__device__ inline void step_prefix(float* s, const float* prev,
+                                   const float* post, int n,
+                                   const CellImage& cell) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float dx = post[3 * i] - prev[3 * i], dy = post[3 * i + 1] - prev[3 * i + 1],
+          dz = post[3 * i + 2] - prev[3 * i + 2];
+    cell.apply(dx, dy, dz);
+    s[3 * i] = s[3 * i] + dx;
+    s[3 * i + 1] = s[3 * i + 1] + dy;
+    s[3 * i + 2] = s[3 * i + 2] + dz;
   }
 }
 

@@ -67,11 +67,8 @@ __global__ void __launch_bounds__(KNN_THREADS)
     if (!col) continue;
     for (int ii = 0; ii < m; ++ii) {
       const int i = i0 + ii;
-      const float dx = minimg(rows[3 * ii] - xj, lx);
-      const float dy = minimg(rows[3 * ii + 1] - yj, ly);
-      const float dz = minimg(rows[3 * ii + 2] - zj, lz);
-      float acc = dx * dx + dy * dy;
-      acc = acc + dz * dz;
+      const float acc = minimg_sq(rows[3 * ii] - xj, rows[3 * ii + 1] - yj,
+                                  rows[3 * ii + 2] - zj, lx, ly, lz);
       if (!(acc <= acc_cut) || i == j) continue;
       const float d = sqrtf(acc);
       if (!(d < td[KNN_KMAX - 1])) continue;

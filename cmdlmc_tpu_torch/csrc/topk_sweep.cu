@@ -5,8 +5,8 @@
 // statistics and jump matrix. One launch advances every replica through a
 // whole block of frames; one warp runs one replica, lanes stride over sites.
 // Per frame:
-//   * the block advances the shared prefix sum s += minimg3(post - prev)
-//     (kmc_common.cuh::advance_prefix, orthorhombic or triclinic) and stages
+//   * the block advances its prefix sum s += minimg3(post - prev)
+//     (kmc_common.cuh::step_prefix, orthorhombic or triclinic) and stages
 //     the frame's tables in shared memory when they fit;
 //   * each warp runs up to max_events event iterations. The candidate rate of
 //     slot k at site i is a_k[i] = omega_k[i] occ[i] (1 - occ[nbr_k[i]]), where
@@ -26,17 +26,26 @@
 // JAX kernel's occ[nbr] refresh modes (one-hot matmuls on the TPU) have no
 // counterpart; its docstring states all three give the same occ[nbr].
 //
-// State: each warp keeps its replica's occupancy as bits in shared memory
-// (N/8 bytes: 18 B at N=144, 576 B at N=4608, so 32 warps fit beside the
-// prefix sum at supercell N). Warps per block: 8, and 32 past LARGE_N sites,
-// where the block's prefix sum and positions (24 N bytes, 110.6 KB at
-// N=4608) leave room for one block per SM, so that block's warps are all
-// the SM runs; at N=144 a block takes under 18 KB and eight 8-warp blocks
-// fill the SM's 64 warp slots. occ only takes the values 0 and 1, so the rate
-// products are those of the float occupancy bit for bit. Labels, sites,
-// t_last_jump, tlast_site and disp_base stay in global memory, where the
-// kernel updates them in place: they are touched at events (and tlast_site
-// once per site and rate evaluation with the blend).
+// State: each warp keeps its replica's occupancy as bits (N/8 bytes: 18 B at
+// N=144, 1152 B at N=9216). Each block keeps its own copy of the site prefix
+// sum s (12 N bytes) and advances it frame by frame from the frame positions,
+// which it reads from global memory (L2) like the tables. Warps per block:
+// 8, and 32 past LARGE_N sites. The plan (topk_plan) picks one of two
+// layouts from N:
+//   0 "shared": s and the warps' bits in shared memory, 16 N bytes with 32
+//     warps, and the frame's tables beside them where they fit too (N=144):
+//     every N whose 16 N bytes fit the opt-in shared memory (232,448 B on
+//     the H100), so up to 14,528 sites (N=4608: 73.7 KB; N=9216: 147.5 KB);
+//   1 "global": s in a global scratch slice per block and the bits in one
+//     per replica (both L2), every larger N, 32 warps per block.
+// A layout moves data and nothing else: both take the same draws and
+// decisions and advance s once per frame in the same order, so the results
+// do not depend on it. At N=144 an 8-warp block takes
+// under 18 KB and eight blocks fill the SM's 64 warp slots. occ only takes
+// the values 0 and 1, so the rate products are those of the float occupancy
+// bit for bit. Labels, sites, t_last_jump, tlast_site and disp_base stay in
+// global memory, where the kernel updates them in place: they are touched at
+// events (and tlast_site once per site and rate evaluation with the blend).
 //
 // Races: a zero-rate candidate scores 0 and E = 0 - log(u) is +0 for a draw of
 // exactly 1.0, so that draw makes a positive-rate candidate win; the JAX
@@ -52,9 +61,9 @@
 // evaluations form one serial chain per warp.
 // The bytes (tables read per block per frame, positions, replica state once
 // in and out) bound it far less: the tables come from shared memory at small
-// N and from L2 at supercell N, where every block reads the same rows. The
-// design keeps the loop free of one-hot work and of any [N, N] or [R, K, N]
-// buffer.
+// N and from L2 at supercell N, where every block reads the same rows, and so
+// do the frame positions. The design keeps the loop free of one-hot work and
+// of any [N, N] or [R, K, N] buffer.
 //
 // Numerics: build with --fmad=false and without fast math (kmc_common.cuh).
 #include <cuda_runtime.h>
@@ -82,6 +91,8 @@ struct TopkArgs {
   float* u;              // [R]     in place
   int* evc;              // [R]     in place
   int* trunc;            // [R]     out
+  float* s_glob;         // [blocks, N, 3] scratch (layout 1)
+  uint32_t* bits_glob;   // [R, words] scratch (layout 1)
   int R, N, P, B, K, tile, tile_offset, frame0, max_events, kind, blend;
   int tables_in_smem;
   float dt, relax;
@@ -90,14 +101,47 @@ struct TopkArgs {
   CellImage cell;
 };
 
-// Dynamic shared memory of one block: the prefix sum and positions [2, N, 3],
-// the frame's tables [2 or 3, K, N] when staged, each warp's occupancy bits.
+// Sites past which a block runs 32 warps instead of 8 (see the note above).
+constexpr int LARGE_N = 1024;
+
+// Dynamic shared memory of one block in the shared layout: s [N, 3], the
+// frame's tables [2 or 3, K, N] when staged, each warp's occupancy bits.
 __host__ inline size_t topk_smem_bytes(int N, int K, int blend, int warps,
                                        int with_tables) {
-  size_t tables = with_tables ? (size_t)(blend ? 3 : 2) * K * N : 0;
-  size_t words = (size_t)(N + 31) / 32;
-  return sizeof(float) * ((size_t)6 * N + tables) +
+  const size_t tables = with_tables ? (size_t)(blend ? 3 : 2) * K * N : 0;
+  const size_t words = (size_t)(N + 31) / 32;
+  return sizeof(float) * ((size_t)3 * N + tables) +
          sizeof(uint32_t) * words * warps;
+}
+
+// A launch's plan: warps per block, layout (the shared one where it fits),
+// whether the tables are staged, the dynamic shared memory and the global
+// scratch in bytes (s per block, then the bits per replica).
+struct TopkPlan {
+  int warps, layout, tables_in_smem;
+  size_t smem, scratch;
+};
+
+static cudaError_t topk_plan(int R, int N, int K, int blend, int device,
+                             TopkPlan* plan) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const size_t limit = (size_t)optin;
+  plan->warps = N > LARGE_N ? 32 : 8;
+  plan->layout = topk_smem_bytes(N, K, blend, plan->warps, 0) <= limit ? 0 : 1;
+  plan->tables_in_smem =
+      plan->layout == 0 && topk_smem_bytes(N, K, blend, plan->warps, 1) <= limit;
+  plan->smem = plan->layout == 0 ? topk_smem_bytes(N, K, blend, plan->warps,
+                                                   plan->tables_in_smem)
+                                 : 0;
+  const size_t blocks = (size_t)(R + plan->warps - 1) / plan->warps;
+  plan->scratch = plan->layout == 0 ? 0
+                                    : sizeof(float) * blocks * 3 * N +
+                                          sizeof(uint32_t) * (size_t)R *
+                                              ((N + 31) / 32);
+  return cudaSuccess;
 }
 
 __device__ inline float occ_of(const uint32_t* bits, int i) {
@@ -159,27 +203,26 @@ __device__ inline float slot_sums(const TopkArgs& a, const float* rs,
   return total;
 }
 
-template <int WARPS, int KMAX>
+template <int WARPS, int KMAX, int LAYOUT>
 __global__ void __launch_bounds__(WARPS * 32) topk_sweep_kernel(TopkArgs a) {
   extern __shared__ float sm[];
   const int n = a.N, K = a.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t tsize = a.tables_in_smem ? (size_t)K * n : 0;
-  float* s = sm;              // [N, 3] site-displacement prefix sum
-  float* cur = s + 3 * n;     // [N, 3] positions of this frame
-  float* rs_s = cur + 3 * n;  // [K, N] resc of this frame (staged)
-  int* ti_s = (int*)(rs_s + tsize);      // [K, N] topi
-  float* td_s = rs_s + 2 * tsize;        // [K, N] topd (blend)
-  const size_t ntab = a.tables_in_smem ? (a.blend ? 3 : 2) * tsize : 0;
-  const int words = (n + 31) / 32;
-  uint32_t* bits = (uint32_t*)(rs_s + ntab) + (size_t)warp * words;
-
   const int r = blockIdx.x * WARPS + warp;
   const bool active = r < a.R;
-  for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) {
-    s[k] = a.s_in[k];
-    cur[k] = a.prev_in[k];
-  }
+  const int words = (n + 31) / 32;
+  const size_t tsize = a.tables_in_smem ? (size_t)K * n : 0;
+  const size_t ntab = a.tables_in_smem ? (a.blend ? 3 : 2) * tsize : 0;
+  // s [N, 3], the site-displacement prefix sum; the staged tables [K, N]:
+  // resc, topi and (blend) topd; each warp's occupancy bits
+  float* s = LAYOUT == 0 ? sm : a.s_glob + (size_t)blockIdx.x * 3 * n;
+  float* rs_s = sm + 3 * n;
+  int* ti_s = (int*)(rs_s + tsize);
+  float* td_s = rs_s + 2 * tsize;
+  uint32_t* bits = LAYOUT == 0 ? (uint32_t*)(rs_s + ntab) + (size_t)warp * words
+                               : a.bits_glob + (size_t)r * words;
+
+  for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) s[k] = a.s_in[k];
   float* lab_r = a.lab + (size_t)r * n;
   float* tls_r = a.tls + (size_t)r * n;
   float u = 0.f;
@@ -204,7 +247,8 @@ __global__ void __launch_bounds__(WARPS * 32) topk_sweep_kernel(TopkArgs a) {
 
   for (int f = 0; f < a.B; ++f) {
     __syncthreads();  // every warp is done with the previous frame
-    advance_prefix(s, cur, a.pos + (size_t)f * 3 * n, n, a.cell);
+    const float* cur = a.pos + (size_t)f * 3 * n;  // this frame's positions
+    step_prefix(s, f == 0 ? a.prev_in : cur - 3 * n, cur, n, a.cell);
     const size_t fo = (size_t)f * K * n;
     if (a.tables_in_smem) {
       for (size_t q = threadIdx.x; q < (size_t)K * n; q += blockDim.x) {
@@ -324,54 +368,56 @@ __global__ void __launch_bounds__(WARPS * 32) topk_sweep_kernel(TopkArgs a) {
     }
   }
   if (blockIdx.x == 0) {
+    const float* last = a.pos + (size_t)(a.B - 1) * 3 * n;
     for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) {
       a.s_out[k] = s[k];
-      a.prev_out[k] = cur[k];
+      a.prev_out[k] = last[k];
     }
   }
 }
 
-// Sites past which a block runs 32 warps instead of 8 (see the note above).
-constexpr int LARGE_N = 1024;
-
-template <int WARPS, int KMAX>
+template <int WARPS, int KMAX, int LAYOUT>
 static cudaError_t launch(const TopkArgs& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      topk_sweep_kernel<WARPS, KMAX>,
+      topk_sweep_kernel<WARPS, KMAX, LAYOUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.R + WARPS - 1) / WARPS;
-  topk_sweep_kernel<WARPS, KMAX><<<blocks, WARPS * 32, smem, stream>>>(a);
+  topk_sweep_kernel<WARPS, KMAX, LAYOUT><<<blocks, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Whether a launch at (N, K, blend, warps) stages the tables in shared
-// memory (1) or reads them from global memory (0), and its shared memory;
-// cudaErrorInvalidValue when even the untabled layout does not fit.
-static cudaError_t smem_plan(int N, int K, int blend, int warps, int device,
-                             int* tables_in_smem, size_t* smem) {
-  int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  *tables_in_smem = topk_smem_bytes(N, K, blend, warps, 1) <= (size_t)optin;
-  *smem = topk_smem_bytes(N, K, blend, warps, *tables_in_smem);
-  return *smem > (size_t)optin ? cudaErrorInvalidValue : cudaSuccess;
+// The global scratch a launch at (R, N, K, blend) needs, in bytes: 0 in
+// the shared layout.
+extern "C" int cmdlmc_topk_sweep_scratch(int R, int N, int K, int blend,
+                                         int device, long long* scratch_bytes) {
+  CmdlmcDeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  TopkPlan plan;
+  cudaError_t err = topk_plan(R, N, K, blend, device, &plan);
+  if (err != cudaSuccess) return (int)err;
+  *scratch_bytes = (long long)plan.scratch;
+  return 0;
 }
 
 extern "C" int cmdlmc_topk_sweep(
     const void* pos, const void* topd, const void* topi, const void* resc,
     const void* prev_in, const void* s_in, void* prev_out, void* s_out,
     void* occ, void* lab, void* sites, void* tlast, void* tls, void* db,
-    void* u, void* evc, void* trunc, int R, int N, int P, int B, int K,
-    int tile, int tile_offset, int frame0, int max_events, int kind,
-    int blend, int ortho, float dt, float relax, uint32_t seed,
-    const float* law6, const float* geom18, void* stream, int device) {
+    void* u, void* evc, void* trunc, void* scratch, long long scratch_bytes,
+    int R, int N, int P, int B, int K, int tile, int tile_offset, int frame0,
+    int max_events, int kind, int blend, int ortho, float dt,
+    float relax, uint32_t seed, const float* law6, const float* geom18,
+    void* stream, int device) {
   CmdlmcDeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
-  if (kind < 0 || kind > 3 || K < 1 || K > 16 || N < 2)
+  if (kind < 0 || kind > 3 || K < 1 || K > 16 || N < 2 || B < 1)
     return (int)cudaErrorInvalidValue;
+  TopkPlan plan;
+  err = topk_plan(R, N, K, blend, device, &plan);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)plan.scratch > scratch_bytes) return (int)cudaErrorInvalidValue;
   TopkArgs a = {};
   a.pos = (const float*)pos;
   a.topd = (const float*)topd;
@@ -390,6 +436,9 @@ extern "C" int cmdlmc_topk_sweep(
   a.u = (float*)u;
   a.evc = (int*)evc;
   a.trunc = (int*)trunc;
+  a.s_glob = (float*)scratch;
+  if (plan.layout == 1)  // the bits follow the blocks' prefix sums
+    a.bits_glob = (uint32_t*)(a.s_glob + (size_t)((R + 31) / 32) * 3 * N);
   a.R = R;
   a.N = N;
   a.P = P;
@@ -401,6 +450,7 @@ extern "C" int cmdlmc_topk_sweep(
   a.max_events = max_events;
   a.kind = kind;
   a.blend = blend;
+  a.tables_in_smem = plan.tables_in_smem;
   a.dt = dt;
   a.relax = relax;
   a.seed = seed;
@@ -411,12 +461,11 @@ extern "C" int cmdlmc_topk_sweep(
   }
   a.cell.ortho = ortho;
 
-  const bool large = N > LARGE_N;
-  size_t smem = 0;
-  err = smem_plan(N, K, blend, large ? 32 : 8, device, &a.tables_in_smem, &smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (large)
-    return (int)(K <= 8 ? launch<32, 8>(a, smem, s) : launch<32, 16>(a, smem, s));
-  return (int)(K <= 8 ? launch<8, 8>(a, smem, s) : launch<8, 16>(a, smem, s));
+  const bool k8 = K <= 8;
+  if (plan.layout == 1)
+    return (int)(k8 ? launch<32, 8, 1>(a, plan.smem, s) : launch<32, 16, 1>(a, plan.smem, s));
+  if (plan.warps == 32)
+    return (int)(k8 ? launch<32, 8, 0>(a, plan.smem, s) : launch<32, 16, 0>(a, plan.smem, s));
+  return (int)(k8 ? launch<8, 8, 0>(a, plan.smem, s) : launch<8, 16, 0>(a, plan.smem, s));
 }

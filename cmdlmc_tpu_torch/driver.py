@@ -2,7 +2,8 @@
 
 Port of ``cmdlmc_tpu/driver.py`` for the solid-acid and hydronium paths
 (NeighborTopology, dense or with ``max_neighbors``, AngleTopology and
-HydroniumTopology): it
+HydroniumTopology; all but AngleTopology on a ``box_multiplier`` virtual
+supercell too): it
 
   1. builds the cell, trajectory reader, rate law, distance transformation
      and the ``PairRates``, ``AnglePairRates`` (from the first block's extra
@@ -10,9 +11,12 @@ HydroniumTopology): it
      ``torch.device``,
   2. initializes a batch of replicas from a seeded ``torch.Generator`` (or
      takes a given initial state),
-  3. streams trajectory frame blocks to the device on a prefetch thread and
-     advances them through ``engine/fused.py`` (kernel K3, stage 1 + K1, or
-     for the top-K models stage 1 + K4), cut at every print or reset frame,
+  3. streams trajectory frame blocks to the device on a prefetch thread
+     (the supercell is materialized on the device after the copy, so only
+     the small cell crosses PCIe) and advances them through
+     ``engine/fused.py`` (kernel K3, stage 1 + K1, or for the top-K models
+     stage 1 + K4, with the neighbor carry of Verlet candidate reuse
+     threaded from block to block), cut at every print or reset frame,
   4. prints the reference's '#'-commented column output.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from cmdlmc_tpu_torch.config.schema import SimulationConfig, load_config
-from cmdlmc_tpu_torch.core.cell import Cell
+from cmdlmc_tpu_torch.core.cell import Cell, extended_positions
 from cmdlmc_tpu_torch.engine import fused as eng_fused
 from cmdlmc_tpu_torch.engine import lattice as eng
 from cmdlmc_tpu_torch.io.stream import frame_blocks, prefetch
@@ -68,15 +72,8 @@ def unsupported_reason(cfg: SimulationConfig) -> str | None:
     if cfg.trajectory.type_ == "HDF5Trajectory":
         return "HDF5 trajectories are not ported yet (ROADMAP A9)"
     if topo.type_ not in ("NeighborTopology", "AngleTopology", "HydroniumTopology"):
-        return f"topology type {topo.type_!r} is not supported"
-    if _topk_config(cfg):
-        reuse = cfg.engine.nbr_reuse
-        # the auto rule at the configured lattice size; run_block_fused
-        # applies it again at the trajectory's site count
-        auto_on = eng_fused.nbr_reuse_auto(topo.type_ == "NeighborTopology",
-                                           cfg.kmc.lattice_size or 0, topo.buffer)
-        if reuse == "on" or (reuse == "auto" and auto_on):
-            return eng_fused.NBR_REUSE_REASON
+        return (f"topology type {topo.type_!r} is not supported; the water "
+                "family (kmc_water) is not ported yet (ROADMAP A16)")
     if cfg.output.jumpstat_bins > 0 or cfg.engine.jumpmatrix_filename:
         return "jump statistics and the jump matrix are not ported yet (ROADMAP A11)"
     if cfg.engine.checkpoint_path:
@@ -85,8 +82,10 @@ def unsupported_reason(cfg: SimulationConfig) -> str | None:
         return "the scan engine is not ported yet (ROADMAP A12)"
     if cfg.output.type_ == "XYZOutput":
         return "XYZOutput is not ported yet (ROADMAP A9)"
-    if tuple(cfg.atombox.box_multiplier) != (1, 1, 1):
-        return "box_multiplier supercells are not ported yet (ROADMAP A15)"
+    if (topo.type_ == "AngleTopology"
+            and tuple(int(m) for m in cfg.atombox.box_multiplier) != (1, 1, 1)):
+        return ("AngleTopology with a box_multiplier is not ported yet: the JAX "
+                "driver groups the small cell's donors (ROADMAP queue C item 6)")
     d = str(cfg.engine.devices).strip().lower()
     if d not in ("auto", "1"):
         return "multi-GPU replica sharding is not ported yet (ROADMAP A18)"
@@ -308,19 +307,25 @@ class Simulation:
     def _blocks(self):
         """Yield ``(block, donors, extras)`` with the parse and the
         host->device copy running on the prefetch thread (``extras`` is None
-        without AngleTopology)."""
-        topo = self.cfg.topology
+        without AngleTopology). With a ``box_multiplier`` the supercell's
+        positions are made on the device from the copied small cell."""
+        cfg = self.cfg
+        topo = cfg.topology
         gen = frame_blocks(
             self.trajectory,
-            block_size=self.cfg.engine.block_size,
+            block_size=cfg.engine.block_size,
             donor_atoms=topo.donor_atoms,
             extra_atoms=topo.extra_atoms if self.angle else None,
-            max_frames=self.cfg.engine.sweeps,
+            max_frames=cfg.engine.sweeps,
         )
+        mult = tuple(int(m) for m in cfg.atombox.box_multiplier)
 
         def device_array(x):
-            return torch.from_numpy(
+            t = torch.from_numpy(
                 np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+            if mult != (1, 1, 1):
+                t = extended_positions(cfg.atombox.periodic_boundaries, t, mult)
+            return t
 
         def staged():
             for block in gen:

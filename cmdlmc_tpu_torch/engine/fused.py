@@ -1,8 +1,8 @@
 """Fused engine backend: EnsembleState <-> event-loop kernel adapters.
 
 Port of ``cmdlmc_tpu/engine/fused.py`` without jump statistics, the jump
-matrix (ROADMAP A11), multi-GPU sharding (A18) and Verlet candidate reuse
-(A15). Three kernels advance a whole block of frames per launch:
+matrix (ROADMAP A11) and multi-GPU sharding (A18). Three kernels advance a
+whole block of frames per launch:
 
 * the dense models (``PairRates``, ``AnglePairRates``) on two routes that
   draw the same random numbers and, for the same W, land in the same state:
@@ -13,14 +13,18 @@ matrix (ROADMAP A11), multi-GPU sharding (A18) and Verlet candidate reuse
   distances) for any law and ``stale_rates``. :func:`inkernel_route` is the
   rule between them; K3 evaluates the FermiAngle gate itself (law kind 4);
 * the top-K models (``TopKPairRates``, ``HydroniumRates``) on
-  ``ops/topk_sweep.py``: stage 1 builds the K-nearest tables (kernel K5 for
-  an orthorhombic cell on the card), kernel K4 runs the event loop over them,
-  triclinic cells included where the round-based minimum image is exact.
+  ``ops/topk_sweep.py``: stage 1 builds the K-nearest tables (kernels K5 and
+  K6 for an orthorhombic cell on the card), per frame or, with Verlet
+  candidate reuse, at drift-triggered rebuilds with the neighbor carry
+  threaded through ``EnsembleState.nbr_carry``; kernel K4 runs the event
+  loop over them, triclinic cells included where the round-based minimum
+  image is exact.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import torch
 
@@ -33,6 +37,8 @@ from cmdlmc_tpu_torch.rates import laws as rate_laws
 from cmdlmc_tpu_torch.topo.models import (
     AnglePairRates, PairRates, TopKPairRates, TopKRates,
 )
+
+logger = logging.getLogger(__name__)
 
 # The in-kernel route serves fewer replica tiles than this: the JAX
 # package's switch, so the port evaluates the FermiAngle gate where the
@@ -123,10 +129,20 @@ def nbr_reuse_auto(top_k_pairs: bool, n_sites: int, buffer: float) -> bool:
     return top_k_pairs and n_sites >= 1024 and buffer > 0.0
 
 
-NBR_REUSE_REASON = (
-    "Verlet candidate reuse on the top-K path is not ported yet (ROADMAP "
-    "A15); set [Engine] nbr_reuse = off for per-frame neighbor lists"
-)
+_reuse_auto_logged = False
+
+
+def _log_reuse_auto_once():
+    """One INFO line per process when the auto rule turns Verlet reuse on,
+    as the JAX package logs it: reuse changes the numerics against
+    per-frame lists where k truncates the shell."""
+    global _reuse_auto_logged
+    if not _reuse_auto_logged:
+        logger.info(
+            "Verlet candidate-identity reuse auto-enabled for the top-K "
+            "fused path (supercell N, buffered lists); set "
+            "[Engine] nbr_reuse = off for per-frame rebuilds")
+        _reuse_auto_logged = True
 
 
 def run_block_fused(
@@ -149,8 +165,9 @@ def run_block_fused(
 ):
     """Advance all replicas across the block. With ``return_truncation``
     also returns the per-replica count of frames whose event budget ran out.
-    Top-K models run per-frame neighbor lists: ``nbr_reuse`` True, or None
-    where the JAX package's auto rule would turn reuse on, raises."""
+    Top-K models reuse their neighbor lists (Verlet candidate reuse) with
+    ``nbr_reuse`` True, or None where :func:`nbr_reuse_auto` turns it on;
+    the lists then carry over in ``ens.nbr_carry``."""
     reason = fused_unsupported_reason(model, cell)
     if reason:
         raise NotImplementedError(reason)
@@ -221,14 +238,17 @@ def _run_block_topk(model, cell, ens, frames_positions, frame0, *, dt,
     """The top-K branch of :func:`run_block_fused`: stage 1 over the block,
     then K4, split into frame sub-ranges where the tables would pass the
     table budget (bit-exact: draws are keyed by absolute frame and event
-    ordinal, and ``tlast_site`` is rebuilt from the state at each entry).
+    ordinal, ``tlast_site`` is rebuilt from the state at each entry, and
+    the reuse schedule depends on the carry and the absolute frames only).
     ``stale_rates`` does not reach it: K4 recomputes in-frame rates after
     every event (the driver says so once per run)."""
     rep = ens.replicas
     R, N = rep.occ.shape
-    if nbr_reuse or (nbr_reuse is None and nbr_reuse_auto(
-            isinstance(model, TopKPairRates), N, model.host_buffer)):
-        raise NotImplementedError(NBR_REUSE_REASON)
+    if nbr_reuse is None:
+        nbr_reuse = nbr_reuse_auto(isinstance(model, TopKPairRates), N,
+                                   model.host_buffer)
+        if nbr_reuse:
+            _log_reuse_auto_once()
     if tile is None:
         tile = ts.pick_tile_topk(R, n_sites=N, n_protons=rep.site_of_proton.shape[1],
                                  k_cand=model.k)
@@ -242,12 +262,13 @@ def _run_block_topk(model, cell, ens, frames_positions, frame0, *, dt,
             ens, trunc = _run_block_topk(
                 model, cell, ens, frames_positions[s:e], frame0 + s, dt=dt,
                 max_events=max_events, seed=seed, tile=tile,
-                tile_offset=tile_offset, return_truncation=True, nbr_reuse=False)
+                tile_offset=tile_offset, return_truncation=True,
+                nbr_reuse=nbr_reuse)
             trunc_total = trunc if trunc_total is None else trunc_total + trunc
         return (ens, trunc_total) if return_truncation else ens
     out = ts.run_block_topk(model, ens, frames_positions, frame0, dt=dt,
                             max_events=max_events, seed=seed, tile=tile,
-                            tile_offset=tile_offset)
+                            tile_offset=tile_offset, reuse=nbr_reuse)
     return _finish(ens, rep, out, return_truncation)
 
 
@@ -269,7 +290,7 @@ def _finish(ens, rep, out, return_truncation):
     )
     ens_out = dataclasses.replace(
         ens, replicas=replicas, site_disp=out["site_disp"],
-        prev_pos=out["prev_pos"],
+        prev_pos=out["prev_pos"], nbr_carry=out.get("nbr_carry", ens.nbr_carry),
     )
     if return_truncation:
         return ens_out, out["trunc"]

@@ -2,8 +2,8 @@
 
 Port of the state and observable parts of ``cmdlmc_tpu/engine/lattice.py``:
 ``ReplicaState``, ``EnsembleState``, ``init_replicas``,
-``proton_displacement``, ``observables_of``, ``displacement_moment4``,
-``per_proton_variance`` and ``_reset_states``. The per-frame scan engine
+``NeighborCarry``, ``proton_displacement``, ``observables_of``,
+``displacement_moment4``, ``per_proton_variance`` and ``_reset_states``. The per-frame scan engine
 waits for ROADMAP A12; jump histograms and the jump matrix for A11.
 
 A replica is one KMC chain over the shared MD trajectory; all replicas of an
@@ -52,18 +52,50 @@ class ReplicaState:
 
 
 @dataclasses.dataclass
+class NeighborCarry:
+    """Frozen K-nearest candidate lists of Verlet candidate reuse
+    (``ops/topk_sweep.py::topk_tables_verlet``), carried from block to block.
+
+    ref_pos   f32[N, 3]  donor positions at the last rebuild (the drift
+                         reference)
+    ref_topi  i32[K, N]  candidate site ids frozen at the last rebuild
+    ref_valid bool[K, N] whether the slot held a neighbor in range then
+    thresh               drift up to which the lists stay valid
+    last_rebuild         absolute frame of the last rebuild
+    thrash_until         absolute frame up to which the thrash guard rebuilds
+                         every frame
+    The three floats live on the host, so the rebuild schedule is a function
+    of the carry and the absolute frames alone."""
+
+    ref_pos: torch.Tensor
+    ref_topi: torch.Tensor
+    ref_valid: torch.Tensor
+    thresh: float = 0.0
+    last_rebuild: float = -1.0e18
+    thrash_until: float = 0.0
+
+    def to(self, device) -> "NeighborCarry":
+        return dataclasses.replace(self, ref_pos=self.ref_pos.to(device),
+                                   ref_topi=self.ref_topi.to(device),
+                                   ref_valid=self.ref_valid.to(device))
+
+
+@dataclasses.dataclass
 class EnsembleState:
     """Replica batch plus the shared trajectory-displacement carry:
     site_disp f32[N, 3] (prefix sum of per-frame minimum-image site
-    displacements) and prev_pos f32[N, 3] (positions of the previous frame)."""
+    displacements), prev_pos f32[N, 3] (positions of the previous frame) and,
+    on the top-K path with Verlet candidate reuse, the neighbor carry."""
 
     replicas: ReplicaState
     site_disp: torch.Tensor
     prev_pos: torch.Tensor
+    nbr_carry: NeighborCarry | None = None
 
     def to(self, device) -> "EnsembleState":
+        carry = None if self.nbr_carry is None else self.nbr_carry.to(device)
         return EnsembleState(self.replicas.to(device), self.site_disp.to(device),
-                             self.prev_pos.to(device))
+                             self.prev_pos.to(device), carry)
 
 
 def init_replicas(

@@ -1,18 +1,22 @@
-"""Top-K KMC sweep: stage-1 tables, kernel K4, its plain version, the tile rule.
+"""Top-K KMC sweep: stage-1 tables, Verlet candidate reuse, kernel K4, its
+plain version, the tile rule.
 
 Port of ``cmdlmc_tpu/ops/topk_sweep.py`` in rows semantics, for the top-K
 rate models (``TopKPairRates`` and ``HydroniumRates``, orthorhombic or
-triclinic cells) without jump statistics and the jump matrix (ROADMAP A11)
-and without Verlet candidate reuse (A15).
+triclinic cells) without jump statistics and the jump matrix (ROADMAP A11).
 
 Stage 1 (:func:`topk_tables`) builds per frame the tables [B, K, N]:
 ``topd`` (neighbor distances, 1e6 where invalid), ``topi`` (neighbor
 indices, int32) and ``resc``: the law already applied to the rescaled
 distance (``precompute_law``, 0 at invalid slots), or the rescaled distance
 itself where the residence-time blend puts the law inside the event loop. An
-orthorhombic cell takes ``ops/knn_tables.py`` (kernel K5 on the card, its
-plain version on the CPU); a triclinic cell takes ``model.shared``, the
-counterpart of the JAX package's XLA build. Stage 2 advances every replica
+orthorhombic cell takes ``ops/knn_sparse.py`` (kernel K6 on the card) from
+``SPARSE_MIN_N`` sites on where its plan prunes enough, else
+``ops/knn_tables.py`` (kernel K5 on the card), plain versions on the CPU; a
+triclinic cell takes ``model.shared``, the counterpart of the JAX package's
+XLA build. :func:`topk_tables_verlet` freezes the candidate ids between
+drift-triggered rebuilds (Verlet candidate reuse) and recomputes the
+distances at the frozen ids every frame. Stage 2 advances every replica
 through the block: the CUDA kernel ``csrc/topk_sweep.cu`` (K4) for tensors
 on the card, :func:`topk_sweep_reference` for tensors on the CPU.
 
@@ -31,10 +35,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cmdlmc_tpu_torch.ops import build, rng
+from cmdlmc_tpu_torch.core.cell import distance, minimum_image, sqrt32
+from cmdlmc_tpu_torch.engine.lattice import NeighborCarry
+from cmdlmc_tpu_torch.ops import build, knn_sparse, rng
 from cmdlmc_tpu_torch.ops import kmc_sweep as ks
 from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
-from cmdlmc_tpu_torch.ops.knn_tables import MAX_K, PLAIN_CHUNK_BYTES, knn_block_tables
+from cmdlmc_tpu_torch.ops.knn_tables import (
+    BIG, MAX_K, PLAIN_CHUNK_BYTES, knn_block_tables,
+)
 from cmdlmc_tpu_torch.topo.models import Frame, HydroniumRates, TopKRates
 
 
@@ -69,12 +77,22 @@ def _tables_epilogue(model, topd, resc, precompute_law: bool):
 def topk_tables(model, positions_block: torch.Tensor, precompute_law: bool):
     """Stage 1: (topd f32, topi i32, resc f32), each [B, K, N] with
     K = min(k, N - 1). The transformation sees the 1e6 fill of invalid
-    slots, as the JAX package's builds do."""
+    slots, as the JAX package's builds do. An orthorhombic cell's tables
+    come from K6 over the block's sparse plan where ``sparse_plan_for``
+    gives one (from SPARSE_MIN_N sites on, one fetch of the block to build
+    it), else from K5: the JAX package's dispatch; both give the same
+    tables."""
     pos = positions_block.to(torch.float32)
     B, N, _ = pos.shape
     k = min(model.k, N - 1)
     if model.cell.orthorhombic:
-        topd, topi = knn_block_tables(pos, model.box, model.cutbuf, k)
+        plan = knn_sparse.sparse_plan_for(pos, model.box,
+                                          model.host_cutoff + model.host_buffer)
+        if plan is not None:
+            topd, topi = knn_sparse.knn_sparse_tables(pos, model.box, model.cutbuf,
+                                                      k, plan)
+        else:
+            topd, topi = knn_block_tables(pos, model.box, model.cutbuf, k)
         resc = model.transform(topd) if model.transform is not None else topd
     else:
         chunk = max(1, PLAIN_CHUNK_BYTES // (4 * N * N))
@@ -85,6 +103,171 @@ def topk_tables(model, positions_block: torch.Tensor, precompute_law: bool):
         topd, topi, resc = (torch.cat([p[q] for p in parts]).transpose(1, 2)
                             .contiguous() for q in range(3))
     return topd, topi, _tables_epilogue(model, topd, resc, precompute_law)
+
+
+# -- Verlet candidate reuse ---------------------------------------------------
+#
+# The one host-loop schedule of the JAX package's topk_tables_verlet
+# (cmdlmc_tpu/ops/topk_sweep.py:719-840) with its per-frame gather epilogue
+# (_verlet_epilogue). Its device-resident scheduler and one-hot epilogue give
+# the same schedule and tables there and have no counterpart here.
+
+# Thrash guard: a drift-triggered rebuild within _THRASH_GAP frames of the
+# previous one rebuilds every frame until the absolute frame reaches the
+# trigger + _THRASH_SPAN, then probes the drift guard again. Both bounds are
+# absolute frames and ride in the carry, so the schedule does not depend on
+# how the frames are cut into blocks.
+_THRASH_GAP = 4
+_THRASH_SPAN = 128
+
+
+def _thresh_of(model, topd_row: torch.Tensor) -> torch.Tensor:
+    """The drift threshold for which lists frozen from ``topd_row`` [K, N]
+    (a rebuild's raw distances) still cover every pair within the cutoff,
+    float32 on the device (the JAX package's ``_thresh_of``): half the
+    margin of the smallest covering radius (the K-th distance, or cutoff +
+    buffer where fewer than K neighbors are in range) over the cutoff,
+    clipped to [buffer / 16, buffer / 2]."""
+    kth = topd_row[-1]
+    cover = torch.where(kth < 1.0e5, kth, model.cutoff + model.buffer)
+    margin = cover.min() - model.cutoff
+    return torch.clamp(margin / 2.0, model.buffer / 16.0, model.buffer / 2.0)
+
+
+def _rebuild_thresh(model, topd_row: torch.Tensor) -> float:
+    """:func:`_thresh_of` in float64 on the host, as the JAX package's host
+    loop takes it after a thrash span (``_rebuild_thresh``); the drift test
+    compares in float32 all the same."""
+    buf, cut = model.host_buffer, model.host_cutoff
+    kth = topd_row[-1].cpu().numpy()
+    cover = np.where(kth < 1.0e5, kth, np.float32(cut + buf))
+    margin = float(cover.min()) - cut
+    return float(np.clip(margin / 2.0, buf / 16.0, buf / 2.0))
+
+
+def _drift_over(model, pos: torch.Tensor, ref: torch.Tensor,
+                thresh: torch.Tensor) -> torch.Tensor:
+    """[B] whether each frame's largest site drift from ``ref`` [N, 3]
+    exceeds ``thresh`` (float32): minimum image per component, squares
+    summed (x + y) + z, as the JAX package's ``_drift_over``."""
+    d = minimum_image(model.cell, pos - ref[None])
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    return sqrt32(d2.max(dim=1).values) > thresh
+
+
+def topk_tables_verlet(model, positions_block: torch.Tensor, precompute_law: bool,
+                       carry: NeighborCarry | None, frame0: int):
+    """:func:`topk_tables` with Verlet candidate reuse: the K-nearest ids
+    are frozen between drift-triggered rebuilds (the lists stay valid while
+    no site drifts past :func:`_thresh_of`), and the distances are
+    recomputed every frame at the frozen ids (exact index gathers, the
+    port's ``core.cell.distance``), masked at cutoff + buffer.
+
+    ``carry`` is the previous block's :class:`NeighborCarry` (None rebuilds
+    at the block's first frame); ``frame0`` is the block's absolute frame.
+    The schedule is a function of (carry, frame0, frames), so results do not
+    depend on how the frames are cut into blocks. One small fetch per
+    segment: the drift flags, with the threshold after a rebuild.
+
+    Returns (topd, topi, resc, new_carry, rebuilt): the tables [B, K, N] as
+    :func:`topk_tables` gives them and ``rebuilt`` [B] bool (numpy), the
+    frames whose lists were rebuilt."""
+    pos = positions_block.to(torch.float32)
+    B, N, _ = pos.shape
+    dev = pos.device
+    rows_i, rows_v = [], []
+    rebuilt = np.zeros(B, bool)
+    seg = np.zeros(B, np.int64)
+
+    def over_of(ref, thresh):
+        t = torch.tensor(np.float32(thresh), device=dev)
+        return _drift_over(model, pos, ref, t).cpu().numpy()
+
+    def rebuild(f):
+        """Lists at frame f; (threshold, drift flags) in one fetch."""
+        topd, topi, _ = topk_tables(model, pos[f:f + 1], precompute_law=False)
+        rows_i.append(topi[0])
+        rows_v.append(topd[0] < 1.0e5)
+        rebuilt[f] = True
+        seg[f:] = len(rows_i) - 1
+        thresh = _thresh_of(model, topd[0])
+        flags = _drift_over(model, pos, pos[f], thresh)
+        packed = torch.cat([flags.to(torch.float32), thresh[None]]).cpu().numpy()
+        return float(packed[-1]), packed[:-1] > 0.5
+
+    def rebuild_span(f, hi):
+        """Lists at every frame of [f, hi) in one build; the threshold of
+        the last."""
+        topd, topi, _ = topk_tables(model, pos[f:hi], precompute_law=False)
+        for j in range(hi - f):
+            rows_i.append(topi[j])
+            rows_v.append(topd[j] < 1.0e5)
+        rebuilt[f:hi] = True
+        seg[f:hi] = np.arange(len(rows_i) - (hi - f), len(rows_i))
+        seg[hi:] = len(rows_i) - 1
+        return _rebuild_thresh(model, topd[-1])
+
+    if carry is not None:
+        rows_i.append(carry.ref_topi.to(dev))
+        rows_v.append(carry.ref_valid.to(dev))
+        ref = carry.ref_pos.to(dev)
+        thresh = float(carry.thresh)
+        last_rb = float(carry.last_rebuild)
+        thrash_until = float(carry.thrash_until)
+        start = 0
+        over = over_of(ref, thresh)
+    else:
+        thrash_until = 0.0
+        thresh, over = rebuild(0)
+        ref = pos[0]
+        last_rb = float(frame0)
+        start = 1
+    if frame0 + start < thrash_until:
+        # resume a thrash window begun in an earlier block
+        hi = min(B, int(thrash_until) - frame0)
+        thresh = rebuild_span(start, hi)
+        ref = pos[hi - 1]
+        last_rb = float(frame0 + hi - 1)
+        start = hi
+        over = over_of(ref, thresh)
+    while start < B:
+        beyond = np.nonzero(over[start:])[0]
+        if beyond.size == 0:
+            break
+        f = start + int(beyond[0])
+        af = frame0 + f
+        # a negative gap is a replay of earlier frames against a newer
+        # carry, not a thrash
+        if 0 <= af - last_rb <= _THRASH_GAP:
+            thrash_until = float(af + _THRASH_SPAN)
+            hi = min(B, int(thrash_until) - frame0)
+            thresh = rebuild_span(f, hi)
+            ref = pos[hi - 1]
+            last_rb = float(frame0 + hi - 1)
+            start = hi
+            over = over_of(ref, thresh)
+            continue
+        thresh, over = rebuild(f)
+        ref = pos[f]
+        last_rb = float(af)
+        start = f + 1
+
+    seg_t = torch.from_numpy(seg).to(dev)
+    topi = torch.stack(rows_i)[seg_t]  # [B, K, N]
+    valid = torch.stack(rows_v)[seg_t]
+    flat = topi.long() + torch.arange(B, device=dev)[:, None, None] * N
+    nbr = pos.reshape(B * N, 3)[flat]  # [B, K, N, 3]
+    topd = distance(model.cell, pos[:, None, :, :], nbr)
+    topd = torch.where(valid & (topd <= model.cutbuf), topd, BIG)
+    resc = model.transform(topd) if model.transform is not None else topd
+    new_carry = NeighborCarry(ref_pos=ref, ref_topi=rows_i[-1], ref_valid=rows_v[-1],
+                              thresh=float(thresh), last_rebuild=float(last_rb),
+                              thrash_until=float(thrash_until))
+    return (topd, topi, _tables_epilogue(model, topd, resc, precompute_law),
+            new_carry, rebuilt)
+
+
+topk_tables_verlet.rebuild_frames = 0
 
 
 def entry_tlast_site(occ, proton_of_site, t_last_jump) -> torch.Tensor:
@@ -286,6 +469,21 @@ def topk_sweep_reference(
     return out
 
 
+def sweep_scratch_bytes(R: int, N: int, K: int, blend: bool,
+                        device: torch.device) -> int:
+    """Global scratch K4 needs at (R, N, K, blend) on ``device``, from the
+    kernel's own plan: 0 where its state fits shared memory (the shared
+    layout), else the bytes of the global layout (csrc/topk_sweep.cu)."""
+    nbytes = ctypes.c_longlong(0)
+    build.check(
+        build.library().cmdlmc_topk_sweep_scratch(
+            int(R), int(N), int(K), int(bool(blend)), device.index or 0,
+            ctypes.byref(nbytes)),
+        "topk_sweep scratch plan",
+    )
+    return nbytes.value
+
+
 def topk_sweep(
     positions, topd, topi, resc, prev_pos, site_disp, occ, labels, sites,
     tlast, tlast_site, disp_base, u_rem, ev_count, law_params, frame0: int,
@@ -298,8 +496,8 @@ def topk_sweep(
     ``tlast_site`` [R, N] (``entry_tlast_site``); ``law_params`` [8]
     (``law_params8``; a CPU tensor spares a device sync); ``geometry`` the 18
     host floats of h and h^-1 (``Cell.host_geometry``). Returns the updated
-    state as a dict like the dense sweeps' plus ``tlast_site``; the inputs
-    are left unchanged."""
+    state as a dict like the dense sweeps' plus ``tlast_site``;
+    the inputs are left unchanged."""
     B, N, _ = positions.shape
     K = topd.shape[1]
     R = occ.shape[0]
@@ -366,6 +564,8 @@ def topk_sweep(
         s_out.copy_(s_in)
         prev_out.copy_(prev_in)
     else:
+        scratch_bytes = sweep_scratch_bytes(R, N, K, blend, dev)
+        scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8, device=dev)
         lib = build.library()
         topk_sweep.launches += 1
         build.check(
@@ -373,9 +573,9 @@ def topk_sweep(
                 *(t.data_ptr() for t in tables), prev_in.data_ptr(),
                 s_in.data_ptr(), prev_out.data_ptr(), s_out.data_ptr(),
                 *(t.data_ptr() for t in state[:6]), u2.data_ptr(),
-                evc2.data_ptr(), trunc.data_ptr(),
-                R, N, P, B, K, int(tile), int(tile_offset), int(frame0),
-                int(max_events), int(kind), int(bool(blend)),
+                evc2.data_ptr(), trunc.data_ptr(), scratch.data_ptr(),
+                scratch.numel(), R, N, P, B, K, int(tile), int(tile_offset),
+                int(frame0), int(max_events), int(kind), int(bool(blend)),
                 int(bool(orthorhombic)), float(np.float32(dt)),
                 params[6], int(seed) & 0xFFFFFFFF, (ctypes.c_float * 6)(*params[:6]),
                 (ctypes.c_float * 18)(*geom), build.stream_of(occ2), dev.index or 0,
@@ -393,16 +593,24 @@ topk_sweep.launches = 0
 
 def run_block_topk(model, ens, frames_positions: torch.Tensor, frame0: int, *,
                    dt: float, max_events: int = 4, seed: int = 0, tile: int,
-                   tile_offset: int = 0) -> dict:
+                   tile_offset: int = 0, reuse: bool = False) -> dict:
     """EnsembleState adapter: stage-1 tables for the block, then one sweep.
     Returns the sweep's output dict (``tlast_site`` is rebuilt from the
-    state at every entry, so it is not carried)."""
+    state at every entry, so it is not carried). With ``reuse`` the tables
+    come from :func:`topk_tables_verlet` on ``ens.nbr_carry``, and the dict
+    also holds the new carry (``nbr_carry``); the rebuild frames add to
+    ``topk_tables_verlet.rebuild_frames``."""
     rep = ens.replicas
     positions = frames_positions.to(torch.float32)
     blend = has_blend(model)
-    topd, topi, resc = topk_tables(model, positions, precompute_law=not blend)
+    if reuse:
+        topd, topi, resc, carry, rebuilt = topk_tables_verlet(
+            model, positions, not blend, ens.nbr_carry, int(frame0))
+        topk_tables_verlet.rebuild_frames += int(rebuilt.sum())
+    else:
+        topd, topi, resc = topk_tables(model, positions, precompute_law=not blend)
     labels = rep.proton_of_site.to(torch.float32)
-    return topk_sweep(
+    out = topk_sweep(
         positions, topd, topi, resc, ens.prev_pos, ens.site_disp, rep.occ,
         labels, rep.site_of_proton, rep.t_last_jump,
         entry_tlast_site(rep.occ, labels, rep.t_last_jump), rep.disp_base,
@@ -412,3 +620,6 @@ def run_block_topk(model, ens, frames_positions: torch.Tensor, frame0: int, *,
         tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
         blend=blend,
     )
+    if reuse:
+        out["nbr_carry"] = carry
+    return out

@@ -182,6 +182,7 @@ class TopKRates(nn.Module):
             tuple(torch.diagonal(cell.h).tolist()) if cell.orthorhombic else None
         )
         self.cutbuf = float(np.float32(cutoff) + np.float32(buffer))
+        self.host_cutoff = float(np.float32(cutoff))
         self.host_buffer = float(np.float32(buffer))
         self.geometry = cell.host_geometry()
 

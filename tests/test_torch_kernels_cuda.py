@@ -252,3 +252,47 @@ def test_k4_refuses_bad_cuda_inputs(dev):
         ts.topk_sweep(pos, tables[0], tables[1].long(), tables[2], *state,
                       ts.law_params8(model), 0, model.geometry, **kw)
     assert ts.topk_sweep.launches == before
+
+
+@pytest.mark.parametrize("name", ["topk", "hydronium"])
+def test_k4_global_layout_matches_plain(dev, name):
+    """Past 14,528 sites K4's state leaves shared memory for global scratch
+    (its global layout); there too it agrees with its plain version."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    n, r = 14976, 64
+    model, pos, tables, state, kw = _k4_setup(
+        dev, name, n=n, p=5616, r=r, frames=3, box=10.0 * (n / 64) ** (1 / 3))
+    k = tables[0].shape[1]
+    assert ts.sweep_scratch_bytes(256, 64, k, kw["blend"], dev) == 0
+    assert ts.sweep_scratch_bytes(r, n, k, kw["blend"], dev) > 0
+    args = (pos, *tables, *state, ts.law_params8(model), 0, model.geometry)
+    got = ts.topk_sweep(*args, **kw)
+    want = ts.topk_sweep_reference(*args, **kw)
+    same = torch.ones(r, dtype=torch.bool, device=dev)
+    for key in ("occ", "labels", "sites", "ev_count", "trunc"):
+        same &= (got[key] == want[key]).reshape(r, -1).all(dim=1)
+    assert int((~same).sum()) <= 1
+    assert int(want["ev_count"].sum()) > 0
+
+
+def test_k6_equals_k5(dev):
+    """K6 over a plan equals K5 bit for bit, at k=8 and k=16 and with plan
+    shapes of the card's sizes (which prune here) and of the JAX package's
+    (which keep every chunk of these 3000 sites)."""
+    from cmdlmc_tpu_torch.ops import knn_sparse as kns
+    from cmdlmc_tpu_torch.ops import knn_tables as knn
+
+    rng = np.random.RandomState(3)
+    base = rng.uniform(0, 40.0, size=(3000, 3)).astype(np.float32)
+    walk = np.cumsum(rng.normal(scale=0.05, size=(6, 3000, 3)), axis=0)
+    pos = torch.from_numpy((base[None] + walk).astype(np.float32)).to(dev)
+    for rc, tc in ((kns.RC, kns.TC), (512, 512), (32, 64)):
+        plan = kns.sparse_plan_for(pos, (40.0,) * 3, 5.0, min_n=0, max_ratio=1.0,
+                                   rc=rc, tc=tc)
+        assert (plan.lists.shape[1] < plan.n_ch) == (rc < 512)
+        for k in (8, 16):
+            got = kns.knn_sparse_tables(pos, (40.0,) * 3, 5.0, k, plan)
+            want = knn.knn_block_tables(pos, (40.0,) * 3, 5.0, k)
+            assert torch.equal(got[1], want[1]), (rc, tc, k)
+            assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))

@@ -354,24 +354,36 @@ def test_unsupported_features_raise(runs):
         ("engine", "checkpoint_path", "x.npz"),
         ("engine", "backend", "scan"),
         ("output", "jumpstat_bins", 4),
-        ("atombox", "box_multiplier", (2, 2, 2)),
+        ("trajectory", "type_", "HDF5Trajectory"),
+        ("topology", "type_", "KMCWater"),
     ):
         bad = dataclasses.replace(
             cfg, **{section: dataclasses.replace(getattr(cfg, section),
                                                  **{field: value})})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdriver.Simulation(bad, device="cpu")
-    # Verlet candidate reuse on the top-K path: forced on, or at a lattice
-    # size where the auto rule turns it on
+    # AngleTopology on a supercell would group differently from the JAX driver
+    angle_box = dataclasses.replace(
+        cfg, topology=dataclasses.replace(cfg.topology, type_="AngleTopology",
+                                          extra_atoms="P", group_size=4),
+        atombox=dataclasses.replace(cfg.atombox, box_multiplier=(2, 2, 2)))
+    with pytest.raises(NotImplementedError, match="box_multiplier"):
+        tdriver.Simulation(angle_box, device="cpu")
+    # the box_multiplier supercell and Verlet candidate reuse on the top-K
+    # path (forced on, or at a lattice size where the auto rule turns it on)
+    # are ported: they configure
+    sim = tdriver.Simulation(dataclasses.replace(
+        cfg, atombox=dataclasses.replace(cfg.atombox, box_multiplier=(2, 2, 2))),
+        device="cpu")
+    assert torch.equal(torch.diagonal(sim.cell.h), torch.full((3,), 18.0))
     for engine, kmc in (({"nbr_reuse": "on"}, {}),
                         ({"nbr_reuse": "auto"}, {"lattice_size": 1024,
                                                  "proton_number": 12})):
-        bad = dataclasses.replace(
+        ok = dataclasses.replace(
             cfg, topology=dataclasses.replace(cfg.topology, max_neighbors=8),
             engine=dataclasses.replace(cfg.engine, **engine),
             kmc=dataclasses.replace(cfg.kmc, **kmc))
-        with pytest.raises(NotImplementedError, match="A15.*nbr_reuse = off"):
-            tdriver.Simulation(bad, device="cpu")
+        assert type(tdriver.Simulation(ok, device="cpu").model).__name__ == "TopKPairRates"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tdriver.Simulation(cfg, device="cuda")
@@ -382,7 +394,9 @@ def test_port_imports_no_jax():
         "import sys, cmdlmc_tpu_torch.driver, cmdlmc_tpu_torch.cli.mdmc, "
         "cmdlmc_tpu_torch.convert, cmdlmc_tpu_torch.ops.kmc_sweep, "
         "cmdlmc_tpu_torch.topo.models, cmdlmc_tpu_torch.ops.topk_sweep, "
-        "cmdlmc_tpu_torch.ops.knn_tables, cmdlmc_tpu_torch.topo.transforms\n"
+        "cmdlmc_tpu_torch.ops.knn_tables, cmdlmc_tpu_torch.topo.transforms, "
+        "cmdlmc_tpu_torch.ops.knn_sparse, cmdlmc_tpu_torch.engine.lattice, "
+        "cmdlmc_tpu_torch.core.cell\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'cmdlmc_tpu'))\n"
         "print(bad)\n"
