@@ -25,7 +25,14 @@ nonzero without the final ``ok`` line:
    R=4096, B=100, N=144; law kinds 1-3 and a triclinic cell at R=256, B=16;
    the supercells R=4096, B=16, N=4608, P=3072 and N=9216, P=6144, and
    N=14976 at R=256, B=4 (K4's state in global scratch); timed at R=4096;
-9. end to end through ``driver.run_from_config`` on synthetic trajectories:
+9. the water tables (K5 with no cutoff, then the transform) bit for bit
+   against their plain version at [256, 216] and [256, 1728]; K7 (the water
+   event loop) against its plain version at the water path's shape (N=216,
+   R=8192, RNG tiles of 256, the linear transform, keep_last,
+   check_from_old, relaxation 10, d_OH 0.3) over 100 frames, and for the
+   ramp, the 57-point table, n_atoms = 4 and a waiting time at R=1024,
+   B=32; K7 timed at its path's launch (R=8192, B=256) at N=216 and N=1728;
+10. end to end through ``driver.run_from_config`` on synthetic trajectories:
    the ``bench.py`` deployment (144 sites, 96 protons, 256-frame blocks) at
    16384 replicas (stage 1 + K1) and at 1024 (K3), the angle deployment of
    ``tools/bench_fused_variants.py`` (36 P atoms, FermiAngle) at 1024 (K3)
@@ -37,12 +44,19 @@ nonzero without the final ``ok`` line:
    rule; K6 + K4), each with its own launch counts; before them small
    dense, angle, top-K, hydronium and box x2 reuse runs are held against
    the same runs on the CPU;
-10. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
-   rates) and the two top-K supercell runs traced with torch.profiler
-   (device busy and idle time, each kernel's share and the Verlet
-   epilogue's; for the box x4 run the idle time before the first K4 launch
-   apart from the gaps between launches, and the host ranges that fill
-   those gaps), and the host's xyz parse timed alone.
+11. the water deployment of ``tools/bench_water.py`` end to end through the
+   port's ``kmc_water`` main (K5 + K7): 216 O sites at 8192 replicas over
+   1024 frames and 1728 sites (its 57-point conversion table) over 512
+   frames, each with its own launch counts, wall time and site-updates/s;
+   before them a small water run (R=64, 64 frames) whose rows on the card
+   equal those on the CPU;
+12. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
+   rates), the two top-K supercell runs and the water N=216 run traced
+   with torch.profiler (device busy and idle time, each kernel's share and
+   the Verlet epilogue's; for each run the idle time before the first
+   launch of its main kernel apart from the gaps between launches, and the
+   host ranges that fill those gaps), and the host's xyz parse of the dense
+   and water trajectories timed alone.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the end-to-end run of its path, its error against the plain
@@ -271,11 +285,12 @@ INT_KEYS = ("occ", "labels", "sites", "ev_count", "trunc")
 STATE_KEYS = ("occ", "labels", "sites", "tlast", "disp_base", "u_rem", "ev_count")
 
 
-def _agreeing(got, want):
+def _agreeing(got, want, int_keys=INT_KEYS):
     import torch
 
-    same = torch.ones(got["occ"].shape[0], dtype=torch.bool, device=got["occ"].device)
-    for k in INT_KEYS:
+    first = got[int_keys[0]]
+    same = torch.ones(first.shape[0], dtype=torch.bool, device=first.device)
+    for k in int_keys:
         a, b = got[k], want[k]
         same &= (a == b).reshape(a.shape[0], -1).all(dim=1)
     return same
@@ -341,7 +356,8 @@ def _smallest_margin(w, occ, u, frame_idx, tile_id, rin, kw):
     return best
 
 
-def _partings(n_frames, state0, step, margin, keys=STATE_KEYS, cap=64):
+def _partings(n_frames, state0, step, margin, keys=STATE_KEYS, cap=64,
+              int_keys=INT_KEYS):
     """Step every replica frame by frame through a kernel and its plain
     version from the plain version's state (``step(f, prev, s, state)``
     returns both outputs for frame f alone; ``state`` in the order of
@@ -353,7 +369,7 @@ def _partings(n_frames, state0, step, margin, keys=STATE_KEYS, cap=64):
     found = []
     for f in range(n_frames):
         got, want = step(f, prev, s, state)
-        for r in (~_agreeing(got, want)).nonzero()[:, 0].tolist():
+        for r in (~_agreeing(got, want, int_keys)).nonzero()[:, 0].tolist():
             if len(found) < cap:
                 found.append((r, f, *margin(f, state, r)))
         prev, s = want["prev_pos"], want["site_disp"]
@@ -368,7 +384,16 @@ def _dense_margin(w, frame0, kw):
                                              frame0 + f, r // tile, r % tile, kw)
 
 
-def _hold(tag, label, got, want, ev0, n_frames, replay) -> float:
+# (key, rtol, atol) of the float state held by _hold: u_rem is an O(1) draw
+# minus an O(1) integrated rate, so near zero its float32 error is absolute,
+# hence the atol beside the rtol
+DENSE_FLOATS = (("u_rem", 1e-5, 1e-5), ("tlast", 1e-5, 1e-5),
+                ("disp_base", 0.0, 1e-4), ("site_disp", 1e-5, 1e-5),
+                ("prev_pos", 0.0, 0.0))
+
+
+def _hold(tag, label, got, want, ev0, n_frames, replay, int_keys=INT_KEYS,
+          floats=DENSE_FLOATS) -> float:
     """Hold a kernel's outputs to its plain version's on the same inputs:
     replicas whose integer state differs at most PARTINGS_PER_REPLICA_FRAME
     per replica-frame, each parting at a near-tie (``replay()`` finds the
@@ -376,7 +401,7 @@ def _hold(tag, label, got, want, ev0, n_frames, replay) -> float:
     to rtol 1e-5 (disp_base atol 1e-4). Returns the worst float error."""
     import torch
 
-    same = _agreeing(got, want)
+    same = _agreeing(got, want, int_keys)
     n_diff = int((~same).sum())
     events = int(want["ev_count"].sum() - ev0.sum())
     replica_frames = same.numel() * n_frames
@@ -399,11 +424,7 @@ def _hold(tag, label, got, want, ev0, n_frames, replay) -> float:
     if events == 0:
         raise AssertionError(f"{tag} {label}: the comparison fired no events")
     worst = 0.0
-    # u_rem is an O(1) draw minus an O(1) integrated rate: near zero its
-    # float32 error is absolute, hence the atol beside the rtol
-    floats = [("u_rem", 1e-5, 1e-5), ("tlast", 1e-5, 1e-5),
-              ("disp_base", 0.0, 1e-4), ("site_disp", 1e-5, 1e-5),
-              ("prev_pos", 0.0, 0.0)]
+    floats = list(floats)
     if "tlast_site" in want:
         floats.append(("tlast_site", 1e-5, 1e-5))
     for k, rtol, atol in floats:
@@ -1077,6 +1098,239 @@ def phase_k4(dev):
     return result
 
 
+# the water deployment of tools/bench_water.py (ROADMAP A20): 216 O in an
+# 18.6 A cube (bulk water density), Fermi a=0.06 b=2.3 c=0.1, the linear
+# rescaling a=0.5 b=1.2 on (0, 10), d_OH 0.3, relaxation time 10,
+# keep_last_neighbor_rescaled, n_atoms 3, check_from_old at the keyword
+# schema's default (True), 8192 replicas in RNG tiles of 256, dt 0.5,
+# max_events 4; and the same at 1728 sites and constant density with its
+# interpolation table (bench_water.py --transform interp: 57 points,
+# 2.0-3.4 -> 1.9-3.4)
+W_SITES, W_BIG_SITES, W_REPLICAS, W_TILE, W_BLOCK = 216, 1728, 8192, 256, 256
+W_BOX = 18.6
+W_BIG_BOX = W_BOX * (W_BIG_SITES / W_SITES) ** (1.0 / 3.0)
+W_LINEAR = (0.5, 1.2, 0.0, 0.0, 10.0)  # a, b, (d0), left, right
+W_INTERP_POINTS = 57
+W_RELAX, W_D_OH = 10, 0.3
+W_INT_KEYS = ("site", "last", "fsj", "wait", "jumps", "ev_count", "trunc")
+W_FLOATS = (("u_rem", 1e-5, 1e-5), ("corr", 1e-5, 1e-5), ("disp_base", 0.0, 1e-4),
+            ("site_disp", 1e-5, 1e-5), ("prev_pos", 0.0, 0.0))
+# operations of one candidate evaluation at K table slots: the blend (3 per
+# slot and 3 for the factor), the back-connection test (1 per slot), the
+# Fermi law on 3 slots (5 each), the waiting gate and the total (2 + 3), and
+# the clock test (2); of one event besides: two keyed draws (about 40 integer
+# operations each), the pick (4), the jump's minimum image (15), the rebase
+# (9), the d_OH step (17), the log and the counters (10)
+W_EVENT_OPS = 135.0
+
+
+def water_eval_ops(k: int) -> float:
+    return 4.0 * k + 3.0 + 15.0 + 5.0 + 2.0
+
+
+def water_bound(R, B, N, K, events, trunc) -> dict:
+    """Bound of a water sweep that fired `events` events and ran out of
+    event budget in `trunc` replica-frames: each replica-frame evaluates its
+    candidates once per event, once more in the iteration that does not fire
+    (unless its budget ran out) and once for the leftover rate; each event
+    adds W_EVENT_OPS; the prefix sum advances once per frame (6 per site and
+    axis). Bytes: positions and the three tables read once, the replica
+    state (9 words) read and written once, the prefix sum and previous
+    positions in, both out."""
+    evals = events + (R * B - trunc) + R * B
+    flops = evals * water_eval_ops(K) + events * W_EVENT_OPS + 18.0 * B * N
+    nbytes = 4.0 * B * N * 3 + 12.0 * B * K * N + 2 * 4.0 * R * 13 + 4.0 * R + 4 * 4.0 * N * 3
+    return bound(flops, nbytes)
+
+
+def _water_transform(name):
+    """(tkind, params[5], interp x, interp y) of the smoke's transforms."""
+    import numpy as np
+
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+
+    zeros = np.zeros(5, np.float32)
+    if name == "linear":
+        return ws.T_LINEAR, np.array(W_LINEAR, np.float32), None, None
+    if name == "ramp":  # the hydronium deployment's ReLU
+        a, b, d0, left, right = RELU
+        return ws.T_RAMP, np.array([a, b, d0, left, right], np.float32), None, None
+    if name == "interp":
+        return (ws.T_INTERP, zeros, np.linspace(2.0, 3.4, W_INTERP_POINTS, dtype=np.float32),
+                np.linspace(1.9, 3.4, W_INTERP_POINTS, dtype=np.float32))
+    return ws.T_NONE, zeros, None, None
+
+
+def _k7_inputs(dev, n, frames, replicas, box, transform="linear", k=3, seed=0):
+    """bench_water.py's frames (uniform sites, 0.03 A jitter per frame), the
+    water tables on the card (K5, no cutoff) and fresh replica states."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.models import water as wm
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+
+    pos = torch.from_numpy(_jitter_block(n, frames, box, seed)).to(dev)
+    tkind, tp, tx, ty = _water_transform(transform)
+    tables = ws.water_tables(pos, (box,) * 3, k, tkind, tp, tx, ty)
+    st = wm.init_water_states(torch.Generator().manual_seed(seed), replicas, n, pos[0])
+    state = [st.site, st.last_site, st.frames_since_jump, st.wait_left, st.jumps,
+             st.clock.event_count, st.clock.u_remaining, st.correction,
+             torch.zeros((replicas, 3), device=dev)]
+    law = torch.from_numpy(np.array([*FERMI, 0, 0, 0], np.float32))
+    return pos, tables, [pos[0].clone(), torch.zeros((n, 3), device=dev), *state], law
+
+
+def _water_margin(pos, tables, law, st, f, r, frame0, box, kw):
+    """Replay one replica's event iterations of one frame the plain way and
+    return the smallest relative margin of a decision taken there (the clock
+    test u <= budget, the pick's two thresholds u2 >= r0 and u2 >= r0 + r1)
+    and the decision's name. The other decisions (the blend, the
+    back-connection, the farthest slot) compare values that both versions
+    compute with the same IEEE operations."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import rng
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+
+    dev = pos.device
+    sl = [t[r:r + 1].clone() for t in st]
+    site, last, fsj, wait = sl[0], sl[1], sl[2], sl[3]
+    u = sl[6]
+    td, ti, rs = (t[f] for t in tables)
+    p = law.to(dev)
+    ckw = dict(kind=kw["kind"], relax=kw["relax"], keep_last=kw["keep_last"],
+               check_old=kw["check_old"])
+    tid = torch.tensor([r // kw["tile"]], device=dev)
+    rin = torch.tensor([r % kw["tile"]], device=dev)
+    dt = torch.tensor(kw["dt"], dtype=torch.float32, device=dev)
+    phase = torch.zeros(1, device=dev)
+    best = (float("inf"), "none")
+    for ev in range(kw["max_events"]):
+        rates, cand = ws.candidate_rates(td, ti, rs, site, last, fsj, wait, p, **ckw)
+        total = ws.total_rate(rates)
+        budget = total * (dt - phase)
+        if float(budget) > 0:
+            best = min(best, (float(abs(u - budget) / budget), f"clock, event {ev}"))
+        if not (bool(u <= budget) and float(budget) > 0):
+            break
+        u2 = rng.u01_counter(rng.mix_key(kw["seed"], tid, frame0 + f, ev, 12), rin) * total
+        for thr, what in ((rates[:, 0], "pick r0"), (rates[:, 0] + rates[:, 1], "pick r0+r1")):
+            best = min(best, (float(abs(u2 - thr) / total), f"{what}, event {ev}"))
+        eph = phase + u / total
+        last, site = site, cand.gather(1, ws.pick_slot(rates, u2)[:, None])[:, 0].to(torch.int32)
+        fsj = torch.full_like(fsj, -1)
+        wait = torch.full_like(wait, kw["waiting"] + 1 if kw["waiting"] else 0)
+        u = -torch.log(rng.u01_counter(rng.mix_key(kw["seed"], tid, frame0 + f, ev, 13), rin))
+        phase = eph
+    return best
+
+
+def _k7_check(label, pos, tables, state, law, got, want, frame0, box, kw) -> float:
+    """K7 held to its plain version, as K1 is."""
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+
+    def step(f, prev, s, st):
+        args = (pos[f:f + 1], *[t[f:f + 1] for t in tables], prev, s, *st, law,
+                frame0 + f, box)
+        return ws.water_sweep(*args, **kw), ws.water_sweep_reference(*args, **kw)
+
+    def margin(f, st, r):
+        return _water_margin(pos, tables, law, st, f, r, frame0, box, kw)
+
+    return _hold("k7", label, got, want, state[7], pos.shape[0],
+                 lambda: _partings(pos.shape[0], state, step, margin, ws.STATE_KEYS,
+                                   int_keys=W_INT_KEYS),
+                 int_keys=W_INT_KEYS, floats=W_FLOATS)
+
+
+def _water_kw(**extra):
+    kw = dict(kind=0, tile=W_TILE, max_events=MAX_EVENTS, dt=DT, seed=3, relax=W_RELAX,
+              waiting=0, keep_last=True, check_old=True, d_oh=W_D_OH)
+    kw.update(extra)
+    return kw
+
+
+def phase_k7(dev):
+    """The water tables (K5 with no cutoff, then the transform) bit for bit
+    against their plain version at [256, 216] and [256, 1728]; K7 against
+    water_sweep_reference at the water path's shape (N=216, R=8192, TR=256,
+    the linear transform, keep_last, check_from_old, relaxation 10, d_OH
+    0.3) over B=100 frames, and smaller cases (R=1024, B=32) for the ramp,
+    the 57-point table, n_atoms = 4 and a waiting time of 3; K7 timed at its
+    path's launch, R=8192, B=256, at N=216 and N=1728 (64 to 512 threads
+    per block, in turns), held there too, with its plain version timed
+    once."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables, knn_block_tables_reference
+
+    for n, box, tname in ((W_SITES, W_BOX, "linear"), (W_BIG_SITES, W_BIG_BOX, "interp")):
+        pos = torch.from_numpy(_jitter_block(n, W_BLOCK, box)).to(dev)
+        tkind, tp, tx, ty = _water_transform(tname)
+        ms, got = cuda_ms(lambda: ws.water_tables(pos, (box,) * 3, 3, tkind, tp, tx, ty),
+                          reps=5)
+        knn_ms, _ = cuda_ms(lambda: knn_block_tables(pos, (box,) * 3, float("inf"), 3),
+                            reps=5)
+        plain_ms, (wd, wi) = cuda_ms(
+            lambda: knn_block_tables_reference(pos, (box,) * 3, float("inf"), 3), reps=1)
+        wr = ws.apply_transform(tkind, wd, tp, tx, ty)
+        same = (torch.equal(got[1], wi) and torch.equal(got[0].view(torch.int32),
+                                                        wd.view(torch.int32))
+                and torch.equal(got[2].view(torch.int32), wr.view(torch.int32)))
+        b_ = bound(W_BLOCK * knn_ops(n), 4.0 * W_BLOCK * n * 3 + 8.0 * W_BLOCK * 3 * n)
+        say(f"[k7] water tables [B={W_BLOCK}, N={n}, k=3, {tname}]: bit for bit "
+            f"against the plain version: {same}; K5 {knn_ms:.4f} ms (bound "
+            f"{b_['bound_ms']:.5f} ms, {b_['bound_by']}), with the transform "
+            f"{ms:.4f} ms, K5's plain version {plain_ms:.3f} ms")
+        if not same:
+            raise AssertionError(f"water tables at N={n} differ from their plain version")
+
+    worst = 0.0
+    cases = [("linear", 3, {}, W_REPLICAS, 100), ("ramp", 3, {"waiting": 3, "relax": 4},
+                                                    1024, 32),
+             ("interp", 3, {}, 1024, 32), ("linear", 4, {}, 1024, 32),
+             ("none", 3, {"waiting": 3, "check_old": False}, 1024, 32)]
+    for tname, k, extra, R, B in cases:
+        pos, tables, state, law = _k7_inputs(dev, W_SITES, B, R, W_BOX, tname, k)
+        kw = _water_kw(**extra)
+        args = (pos, *tables, *state, law, 0, (W_BOX,) * 3)
+        got = ws.water_sweep(*args, **kw)
+        want = ws.water_sweep_reference(*args, **kw)
+        label = (f"{tname} n_atoms={k} R={R} B={B} N={W_SITES} TR={W_TILE} "
+                 f"{ {key: kw[key] for key in ('relax', 'waiting', 'keep_last', 'check_old')} }")
+        worst = max(worst, _k7_check(label, pos, tables, state, law, got, want, 0,
+                                     (W_BOX,) * 3, kw))
+
+    result = {}
+    for n, box, tname in ((W_SITES, W_BOX, "linear"), (W_BIG_SITES, W_BIG_BOX, "interp")):
+        pos, tables, state, law = _k7_inputs(dev, n, W_BLOCK, W_REPLICAS, box, tname)
+        kw = _water_kw()
+        args = (pos, *tables, *state, law, 0, (box,) * 3)
+        times = {}
+        for threads in (64, 128, 256, 512, 512, 256, 128, 64):
+            ms, got = cuda_ms(lambda: ws.water_sweep(*args, block_threads=threads, **kw),
+                              reps=3)
+            times.setdefault(threads, []).append(ms)
+        plain_ms, want = cuda_ms(lambda: ws.water_sweep_reference(*args, **kw), reps=1)
+        label = f"{tname} R={W_REPLICAS} B={W_BLOCK} N={n} (the path's launch)"
+        worst = max(worst, _k7_check(label, pos, tables, state, law, got, want, 0,
+                                     (box,) * 3, kw))
+        events = int(want["ev_count"].sum() - state[7].sum())
+        b = water_bound(W_REPLICAS, W_BLOCK, n, 3, events, int(want["trunc"].sum()))
+        ms = min(times[ws.BLOCK_THREADS])
+        say(f"[k7] {label}: kernel {ms:.3f} ms at {ws.BLOCK_THREADS} threads per "
+            f"block (runs {', '.join(f'{t}: ' + ' '.join(f'{x:.3f}' for x in v) for t, v in times.items())} ms), "
+            f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+            f"{events} events, {int(want['trunc'].sum())} truncated replica-frames)")
+        if n == W_SITES:
+            # no single PyTorch call runs this event loop
+            result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    result["max_abs_err"] = worst
+    return result
+
+
 def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
                  stale: bool = False, angle: bool = False, topk: str = "") -> Path:
     """Synthetic trajectory (seed 0, as bench.py builds it) and an INI. With
@@ -1200,6 +1454,7 @@ def _counters():
     from cmdlmc_tpu_torch.ops import kmc_sweep as ks
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
     from cmdlmc_tpu_torch.ops.knn_sparse import knn_sparse_tables
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
     from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
@@ -1207,7 +1462,7 @@ def _counters():
     return {"kmc_sweep_streamed": kss.kmc_sweep_streamed,
             "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep,
             "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables,
-            "knn_sparse": knn_sparse_tables}
+            "knn_sparse": knn_sparse_tables, "water_sweep": ws.water_sweep}
 
 
 def _small_cuda_vs_cpu(label, cfg):
@@ -1355,6 +1610,160 @@ def _drive_box4(card: str):
     return launches
 
 
+def write_water_inputs(workdir: Path, n: int, frames: int, replicas: int,
+                       interp: bool = False, print_freq: int = PRINT_FREQ,
+                       chunk: int = W_BLOCK) -> Path:
+    """A synthetic water xyz made from seed 0 as tools/bench_water.py makes
+    its frames (uniform O sites in the cube of the water density, 0.03 A of
+    jitter per frame) and a KMCWater keyword config of the water deployment
+    (``chunk_size 256``, ``print_frequency 100``; max_events is the fused
+    path's 4); with ``interp`` its conversion_data is the 57-point table."""
+    import numpy as np
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    box = W_BOX * (n / W_SITES) ** (1.0 / 3.0)
+    traj = workdir / f"water_{n}_{frames}.xyz"
+    if not traj.exists():
+        block = _jitter_block(n, frames, box)
+        lines = []
+        for f in range(frames):
+            lines.append(f"{n}\nframe {f}\n")
+            lines.append("".join(f"O {x:.6f} {y:.6f} {z:.6f}\n"
+                                 for x, y, z in block[f].tolist()))
+        tmp = traj.with_suffix(".tmp")
+        tmp.write_text("".join(lines))
+        tmp.replace(traj)
+    extra = ""
+    if interp:
+        _, _, x, y = _water_transform("interp")
+        table = workdir / "water_conversion.txt"
+        np.savetxt(table, np.stack([x, y], axis=1), fmt="%.9g")
+        extra = f"conversion_data {table}\n"
+    a, b, _, left, right = W_LINEAR
+    cfg = workdir / (f"water_{n}_{frames}_{replicas}_{print_freq}_{chunk}"
+                     f"{'_interp' if interp else ''}.cfg")
+    cfg.write_text(f"""filename {traj}
+pbc {box} {box} {box}
+md_timestep_fs {DT}
+sweeps {frames}
+print_frequency {print_freq}
+chunk_size {chunk}
+jumprate_params_fs a={FERMI[0]} b={FERMI[1]} c={FERMI[2]}
+rescale_function linear
+rescale_parameters a={a} b={b} left_bound={left} right_bound={right}
+{extra}relaxation_time {W_RELAX}
+d_oh {W_D_OH}
+n_atoms 3
+keep_last_neighbor_rescaled True
+seed 3
+replicas {replicas}
+""")
+    return cfg
+
+
+def _water_rows(text: str):
+    lines = text.splitlines()
+    header = [ln for ln in lines if ln.startswith("#") and "O-Neighbor" in ln]
+    rows = [ln.split() for ln in lines if ln.strip() and not ln.startswith("#")]
+    warn = [ln for ln in lines if ln.startswith("# WARNING")]
+    return header, rows, warn
+
+
+def _run_water(cfg: Path, device: str):
+    from cmdlmc_tpu_torch.cli.kmc_water import kmc_water_main
+    from cmdlmc_tpu_torch.config.keyword import load_configfile
+
+    buf = io.StringIO()
+    states = kmc_water_main(load_configfile(str(cfg), config_name="KMCWater"), out=buf,
+                            device=device)
+    return buf.getvalue(), states
+
+
+def _water_cuda_vs_cpu():
+    """The N=216 water config at R=64 for 64 frames in blocks of 16,
+    printing every 4th frame, on the card and on the CPU (plain versions)
+    from the same initial states: the printed rows equal (but the fps
+    column), and the final states but for near-ties."""
+    cfg = write_water_inputs(WORK, W_SITES, 64, 64, print_freq=4, chunk=16)
+    text, states = {}, {}
+    for d in ("cuda", "cpu"):
+        text[d], states[d] = _run_water(cfg, d)
+    rows = {d: [r[:-1] for r in _water_rows(t)[1]] for d, t in text.items()}
+    a, b = states["cuda"], states["cpu"]
+    same = ((a.site.cpu() == b.site) & (a.clock.event_count.cpu() == b.clock.event_count)
+            & (a.jumps.cpu() == b.jumps))
+    n_diff = int((~same).sum())
+    say(f"[e2e] small water run (N={W_SITES}, R=64, 64 frames): rows equal on cuda "
+        f"and cpu: {rows['cuda'] == rows['cpu']} ({len(rows['cpu'])} rows); {n_diff} "
+        f"of 64 replicas end differently; events {int(a.clock.event_count.sum())} vs "
+        f"{int(b.clock.event_count.sum())}")
+    if rows["cuda"] != rows["cpu"] or not rows["cpu"] or n_diff > 2 \
+            or int(b.clock.event_count.sum()) == 0:
+        raise AssertionError("cuda and cpu runs of the small water config disagree")
+
+
+def _drive_water(label, cfg, card, n, frames, replicas):
+    """One water run end to end through cli/kmc_water.py's main with every
+    launch count set to 0 just before it and read just after: K5 and K7
+    launch, no other kernel does; the rows are the header and one finite
+    8-column row per print frame. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    text, states = _run_water(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    (WORK / f"e2e_output_{label.replace(' ', '_')}.txt").write_text(text)
+    header, rows, warn = _water_rows(text)
+    say(f"[e2e] {label}: launches {launches}")
+    if not header or header[0].split()[1:] != ["Step", "Time", "x", "y", "z",
+                                               "O-Neighbor", "Jumps", "fps"]:
+        raise AssertionError(f"{label}: bad header: {header}")
+    want_rows = len(range(0, frames, PRINT_FREQ))
+    if len(rows) != want_rows or any(len(r) != 8 for r in rows):
+        raise AssertionError(f"{label}: {len(rows)} rows (want {want_rows}) or not 8 columns")
+    vals = np.array(rows, dtype=np.float64)
+    if not np.isfinite(vals).all() or not ((vals[:, 5] >= 0) & (vals[:, 5] < n)).all():
+        raise AssertionError(f"{label}: non-finite values or a site out of range")
+    others = [k for k in launches if k not in ("knn_tables", "water_sweep")]
+    if launches["knn_tables"] <= 0 or launches["water_sweep"] <= 0 or any(
+            launches[k] for k in others):
+        raise AssertionError(f"{label}: expected launches of K5 and K7 only, got {launches}")
+    ev = states.clock.event_count
+    disp = states.displacement
+    if not bool(torch.isfinite(disp).all()):
+        raise AssertionError(f"{label}: non-finite displacements")
+    msd = (disp.double() ** 2).sum(dim=1).mean()
+    say(f"[e2e] {label}: {len(rows)} rows, last Jumps {int(vals[-1, 6])}; "
+        f"{int(ev.sum())} events in total ({float(ev.double().mean()):.2f} per "
+        f"replica), final MSD {float(msd):.4f} A^2; {warn[0] if warn else 'no truncation warning'}")
+    say(f"[e2e] {label}: wall {wall:.2f} s for {frames} frames x {replicas} replicas x "
+        f"{n} sites: {n * replicas * frames / wall:.4e} site-updates/s ({card})")
+    return launches
+
+
+W216, W1728 = "water N=216 R=8192", "water N=1728 R=8192 interp"
+
+
+def phase_water(card: str):
+    """The water deployment end to end through the port's kmc_water main:
+    a small run held against the CPU, then N=216 at R=8192 over 1024
+    frames and N=1728 (its 57-point table) over 512 frames, K5 + K7 each."""
+    _water_cuda_vs_cpu()
+    paths = {W216: _drive_water(W216, write_water_inputs(WORK, W_SITES, 1024, W_REPLICAS),
+                                card, W_SITES, 1024, W_REPLICAS)}
+    paths[W1728] = _drive_water(
+        W1728, write_water_inputs(WORK, W_BIG_SITES, 512, W_REPLICAS, interp=True),
+        card, W_BIG_SITES, 512, W_REPLICAS)
+    return paths
+
+
 def _union_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -1377,10 +1786,17 @@ def _host_ranges():
     from cmdlmc_tpu_torch import driver
     from cmdlmc_tpu_torch.engine import fused as eng_fused
     from cmdlmc_tpu_torch.engine import lattice as eng
+    from cmdlmc_tpu_torch.io import stream
+    from cmdlmc_tpu_torch.models import water as wm
     from cmdlmc_tpu_torch.ops import knn_sparse as kns
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
 
-    return [(eng, "init_replicas", "init_replicas", "call"),
+    # the water CLI imports prefetch when it runs, so the patched one (the
+    # driver bound its own at import and is not affected)
+    return [(wm, "init_water_states", "init_water_states", "call"),
+            (stream, "prefetch", "water_next_block", "iter"),
+            (wm, "run_water_block_fused", "water_block", "call"),
+            (eng, "init_replicas", "init_replicas", "call"),
             (driver.Simulation, "_blocks", "next_block", "iter"),
             (eng_fused, "run_block_fused", "run_block", "call"),
             (ts, "topk_tables_verlet", VERLET_RANGE, "call"),
@@ -1506,14 +1922,15 @@ def _verlet_epilogue_ms(events, knn_kernels) -> float:
 
 def phase_profile(card: str):
     """Where the end-to-end run's time goes: the bench.py deployment with
-    fresh and with stale rates, and both top-K supercells, each traced with
+    fresh and with stale rates, both top-K supercells and the water N=216
+    deployment (through the kmc_water main), each traced with
     torch.profiler after a warm run. Device busy time is the union of kernel
     and copy intervals in the trace; idle is the rest of the traced wall
     time; the box x4 run's Verlet epilogue is the device time launched from
     its stage 1 but for K5 and K6. Each run's idle time is split at the
-    first and last launch of its main kernel (K1, K4) and laid against the
-    driver's host stages (:func:`_idle_report`). Also times the host's xyz
-    parse of the dense trajectory alone."""
+    first and last launch of its main kernel (K1, K4, K7) and laid against
+    the host stages (:func:`_idle_report`). Also times the host's xyz parse
+    of the dense and the water trajectories alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1527,6 +1944,13 @@ def phase_profile(card: str):
         traj, time_step=DT, batch_frames=BLOCK).iter_batches())
     say(f"[profile] host xyz parse of {frames} frames x {N_SITES} atoms: "
         f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
+    water_cfg = write_water_inputs(WORK, W_SITES, 1024, W_REPLICAS)
+    t0 = time.perf_counter()
+    frames = sum(pos.shape[0] for _, pos, _ in XYZTrajectory(
+        WORK / f"water_{W_SITES}_1024.xyz", time_step=DT,
+        batch_frames=W_BLOCK).iter_batches())
+    say(f"[profile] host xyz parse of {frames} frames x {W_SITES} atoms: "
+        f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
     dense = {"K1": "kmc_sweep_streamed_kernel", "K2": "pairwise_kernel"}
     knn = {"K5": "knn_tables_kernel", "K6": "knn_sparse_kernel"}
     runs = [("fresh", write_inputs(WORK, frames=1024, replicas=REPLICAS), dense),
@@ -1536,15 +1960,22 @@ def phase_profile(card: str):
                                        topk="supercell"),
              {"K4": "topk_sweep_kernel", "K5": "knn_tables_kernel"}),
             ("box4", write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4"),
-             {"K4": "topk_sweep_kernel", **knn})]
+             {"K4": "topk_sweep_kernel", **knn}),
+            ("water", water_cfg, {"K7": "water_sweep_kernel", "K5": "knn_tables_kernel"})]
     for name, cfg, kernels in runs:
-        driver.run_from_config(cfg, out=io.StringIO(), device="cuda")  # warm
+        if name == "water":
+            def run(out, cfg=cfg):
+                out.write(_run_water(cfg, "cuda")[0])
+        else:
+            def run(out, cfg=cfg):
+                driver.run_from_config(cfg, out=out, device="cuda")
+        run(io.StringIO())  # warm
         torch.cuda.synchronize()
         buf = io.StringIO()
         with _annotated(), profile(activities=[ProfilerActivity.CPU,
                                                       ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            driver.run_from_config(cfg, out=buf, device="cuda")
+            run(buf)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         trace = WORK / f"e2e_trace_{name}.json"
@@ -1573,6 +2004,9 @@ def phase_profile(card: str):
             f"{busy:.2f} ms, idle {100 * (1 - busy / wall_ms):.1f}%; "
             + ", ".join(shares)
             + f", other device work {100 * rest / busy:.2f}% ({card})")
+        if name == "water":
+            perf = [f"{W_SITES * W_REPLICAS * 1024 / (wall_ms / 1e3):.4e} site-updates/s "
+                    "over the traced wall"]
         say(f"[profile] {name}: {perf[0] if perf else 'no perf line'}; "
             f"trace {trace}")
         main_tag, main_kernel = next(iter(kernels.items()))
@@ -1625,13 +2059,16 @@ def main() -> int:
     k5 = phase_k5(dev)
     k6 = phase_k6(dev)
     k4 = phase_k4(dev)
+    k7 = phase_k7(dev)
     paths = phase_end_to_end(card)
+    paths.update(phase_water(card))
     if opts.profile:
         phase_profile(card)
 
     # each kernel's launches in the end-to-end run of its own path: K1 and
     # K2 on the main path (R=16384), K3 on the in-kernel route (R=1024), K4
-    # and K5 on the top-K path (R=4096), K6 on the box x4 supercell
+    # and K5 on the top-K path (R=4096), K6 on the box x4 supercell, K7 on
+    # the water path (N=216, R=8192)
     main_path, inkernel_path = paths["dense R=16384"], paths["dense R=1024"]
     topk_path = paths[f"topk R={TOPK_REPLICAS}"]
     kernels = [
@@ -1659,6 +2096,10 @@ def main() -> int:
          "source": "cmdlmc_tpu_torch/csrc/knn_sparse.cu",
          "replaces": "cmdlmc_tpu/ops/knn_sparse.py:293",
          "launches": paths[BOX4]["knn_sparse"], **k6},
+        {"name": "water_sweep", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/water_sweep.cu",
+         "replaces": "cmdlmc_tpu/ops/water_sweep.py:506",
+         "launches": paths[W216]["water_sweep"], **k7},
     ]
     say(f"[e2e] launches by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": kernels}))

@@ -161,3 +161,46 @@ def hydronium_rates_from_fields(model, device="cpu") -> HydroniumRates:
         interpolator=interp,
         k=int(model.k),
     )
+
+
+def water_model_from_fields(model, device="cpu"):
+    """The port's WaterModel from a JAX ``WaterModel``: its cell, law,
+    transformation and static fields."""
+    from cmdlmc_tpu_torch.models.water import WaterModel
+
+    return WaterModel(
+        cell_from_fields(model.cell, device), law_from_fields(model.law, device),
+        transform_from_fields(model.transform, device),
+        float(np.asarray(model.d_oh)), n_atoms=int(model.n_atoms),
+        relaxation_time=int(model.relaxation_time),
+        waiting_time=int(model.waiting_time),
+        keep_last_neighbor_rescaled=bool(model.keep_last_neighbor_rescaled),
+        check_from_old=bool(model.check_from_old),
+    ).to(device)
+
+
+def water_states_from_fields(states, device="cpu"):
+    """The port's WaterState from the fields of a JAX ``WaterState`` (the
+    clock's u_remaining and event_count included)."""
+    from cmdlmc_tpu_torch.models.water import WaterState
+
+    c = states.clock
+    f32, i32 = np.float32, np.int32
+    clock = ClockState(
+        u_remaining=_t(c.u_remaining, device, f32),
+        phase=_t(c.phase, device, f32),
+        event_count=_t(c.event_count, device, i32),
+        last_event_frame=_t(c.last_event_frame, device, i32),
+        last_event_phase=_t(c.last_event_phase, device, f32),
+    )
+    return WaterState(
+        site=_t(states.site, device, i32),
+        last_site=_t(states.last_site, device, i32),
+        frames_since_jump=_t(states.frames_since_jump, device, i32),
+        wait_left=_t(states.wait_left, device, i32),
+        correction=_t(states.correction, device, f32),
+        clock=clock,
+        jumps=_t(states.jumps, device, i32),
+        snapshot=_t(states.snapshot, device, f32),
+        displacement=_t(states.displacement, device, f32),
+    )

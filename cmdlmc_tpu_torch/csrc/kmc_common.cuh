@@ -127,8 +127,8 @@ __device__ inline void step_prefix(float* s, const float* prev,
 
 // Rate law `kind` at distance `dist`, parameters p[0..4], in the JAX
 // kernels' operation order: 0 Fermi, 1 Constant, 2 Exponential,
-// 3 ActivationEnergy (its lax.rsqrt is 1.0f / sqrtf, as XLA's CPU backend
-// lowers it), 4 FermiAngle's distance part (Fermi).
+// 3 ActivationEnergy (its lax.rsqrt as 1.0f / sqrtf; XLA's CPU rsqrt is an
+// approximation an ulp or so away), 4 FermiAngle's distance part (Fermi).
 __device__ inline float apply_law(int kind, float dist, const float* p) {
   if (kind == 1) return p[0];
   if (kind == 2) return p[0] * expf(p[1] * dist);

@@ -14,7 +14,7 @@
 // Then the block runs the event loop of event_loop.cuh, the same code K1
 // runs on a W built by stage 1, so the two routes agree wherever their W
 // do. Laws: 0 Fermi, 1 Constant, 2 Exponential, 3 ActivationEnergy (its
-// lax.rsqrt is 1.0f / sqrtf, as XLA's CPU backend lowers it), 4 FermiAngle.
+// lax.rsqrt as 1.0f / sqrtf, kmc_common.cuh::apply_law), 4 FermiAngle.
 //
 // Bound on the H100: operations. The event loop does what K1's does (N*N
 // multiply-adds per rate evaluation per replica, from shared memory); the W

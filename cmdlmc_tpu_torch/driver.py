@@ -72,8 +72,8 @@ def unsupported_reason(cfg: SimulationConfig) -> str | None:
     if cfg.trajectory.type_ == "HDF5Trajectory":
         return "HDF5 trajectories are not ported yet (ROADMAP A9)"
     if topo.type_ not in ("NeighborTopology", "AngleTopology", "HydroniumTopology"):
-        return (f"topology type {topo.type_!r} is not supported; the water "
-                "family (kmc_water) is not ported yet (ROADMAP A16)")
+        return (f"topology type {topo.type_!r} is not supported by mdmc; the water "
+                "family runs through cli/kmc_water.py (ROADMAP A16)")
     if cfg.output.jumpstat_bins > 0 or cfg.engine.jumpmatrix_filename:
         return "jump statistics and the jump matrix are not ported yet (ROADMAP A11)"
     if cfg.engine.checkpoint_path:

@@ -52,6 +52,9 @@ _SIGNATURES = {
         [_P] * 18 + [ctypes.c_longlong] + [_I] * 12 + [_F, _F, ctypes.c_uint32]
         + [ctypes.POINTER(_F)] * 2 + [_P, _I]
     ),
+    "cmdlmc_water_sweep": (
+        [_P] * 17 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
+    ),
 }
 
 _lib = None

@@ -82,7 +82,8 @@ def _apply_law(kind: int, dist: torch.Tensor, p) -> torch.Tensor:
         return p[0] * torch.exp(p[1] * dist)
     dd = dist - p[3]
     safe = torch.where(torch.abs(dd) > 1e-6, dd, 1e-6)
-    # lax.rsqrt is 1 / sqrt on XLA's CPU backend; CUDA's 1.0f / sqrtf
+    # lax.rsqrt as 1 / sqrt, CUDA's 1.0f / sqrtf (XLA's CPU rsqrt is an
+    # approximation an ulp or so away)
     rsqrt = 1.0 / sqrt32(p[2] + 1.0 / (safe * safe))
     energy = torch.clamp(p[1] * dd * rsqrt, min=0.0)
     kt = torch.tensor(rate_laws.KB_EV_PER_K, dtype=torch.float32,
