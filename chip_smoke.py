@@ -11,10 +11,18 @@ nonzero without the final ``ok`` line:
    one nvcc per source, all at once;
 3. RNG: the CUDA counter hash against the torch hash, bit for bit;
 4. K2 (distance matrices) against its plain PyTorch version;
-5. K1 (streamed event loop) against its plain version, stale off and on;
+5. K1 (streamed event loop) against its plain version, stale off and on, at
+   N=144 and N=256, with whole rows at N=256 (its lists in global memory),
+   and every output against the SHA-256 digests recorded from the dense
+   kernel before the row lists (PARENT_DIGESTS); timed at the main path's
+   launch, with the launch plan (list lengths counted on the card, shared
+   memory, where the lists live, blocks per SM) and the bound from the
+   least work (`sweep_work`) beside the dense count;
 6. K3 (in-kernel-W event loop) against its plain version for the law kinds
-   0-4, against stage 1 + K1 on the same state, at 2-16 warps per block,
-   and the two routes timed at 8, 16 and 128 RNG tiles;
+   0-4, with whole rows at N=224 (the route's largest N; the lists in
+   global memory), and against the recorded digests; against stage 1 + K1
+   on the same state, at 2-16 warps per block, and the two routes timed at
+   8, 16 and 128 RNG tiles;
 7. K5 (K-nearest tables) against its plain version at [B=100 and 256,
    N=144] and [B=64, N=4608], k=8, timed there; K6 (the same tables over a
    sparse plan) against its plain version and against K5 bit for bit at
@@ -70,6 +78,7 @@ checkout.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import subprocess
@@ -157,16 +166,63 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def sweep_bound(R, B, N, P, events, w_bytes=0.0, extra_flops=0.0,
+def sweep_work(w, P) -> dict:
+    """The terms the event loop's least work adds, estimated from the
+    frames' W [B, N, N] and averaged over the frames (with binary occupancy
+    a term is one add):
+    - `pairs`: a whole rate evaluation, the occupied x vacant pairs with
+      W != 0: each frame's count of W != 0 scaled by P (N - P) / (N (N - 1)),
+      the share of ordered pairs that join an occupied to a vacant site;
+    - `vacant`: the vacant entries of one row, c (N - P) / (N - 1) with c the
+      frame's nonzeros per row (also the destination race's candidates);
+    - `rows`: the rows one event sums again, the occupied share P / N of
+      |C_s u C_d u {s, d}| (C_j: the rows with W[i][j] != 0) averaged over
+      the moves s -> d with W[s][d] != 0."""
+    import torch
+
+    n = w.shape[-1]
+    m = (w != 0).to(torch.float32)
+    col = m.sum(dim=1)  # [B, N]: |C_j|
+    inter = m.transpose(1, 2) @ m  # [B, s, d]: |C_s n C_d|
+    diag = torch.diagonal(m, dim1=1, dim2=2)  # W[j][j] != 0
+    s_in = torch.clamp(diag[:, :, None] + m, max=1.0)  # s in C_s u C_d
+    d_in = torch.clamp(m.transpose(1, 2) + diag[:, None, :], max=1.0)
+    union = col[:, :, None] + col[:, None, :] - inter + (1 - s_in) + (1 - d_in)
+    moves = m.sum(dim=(1, 2)).clamp(min=1)
+    per_frame_union = (union * m).sum(dim=(1, 2)) / moves
+    nnz = m.sum(dim=(1, 2))
+    return {"pairs": float((nnz * P * (n - P) / (n * (n - 1))).mean()),
+            "vacant": float((nnz / n * (n - P) / (n - 1)).mean()),
+            "rows": float(per_frame_union.mean()) * P / n}
+
+
+def sweep_bound(R, B, N, P, events, work, w_bytes=0.0, extra_flops=0.0,
                 extra_bytes=0.0) -> dict:
     """Bound of an event-loop sweep over R replicas and B frames that fired
-    `events` events with fresh rates: each rate evaluation is N*N
-    multiply-adds per replica, one per event plus the one that ends each
-    replica-frame, and each event races 2N candidates (a log, a divide and a
-    compare each). Bytes: positions, W where it is read, and the replica
-    state read once and written once."""
-    flops = 2.0 * N * N * (events + R * B) + 6.0 * N * events + extra_flops
+    `events` events with fresh rates, from :func:`sweep_work`: one whole
+    rate evaluation per replica-frame (`pairs` adds); per event the rows it
+    changes summed again (`rows` x `vacant` adds) and the N rows added to
+    the total, and the two races over the P occupied sources and src's
+    `vacant` columns, a log, a divide and a compare per candidate. Bytes:
+    positions, W where it is read, and the replica state read once and
+    written once."""
+    flops = (work["pairs"] * R * B
+             + (work["rows"] * work["vacant"] + N) * events
+             + 3.0 * (P + work["vacant"]) * events + extra_flops)
     state = 4.0 * R * (2 * N + 5 * P + 2)  # occ, labels, sites, tlast, db, u, evc
+    nbytes = (4.0 * B * N * 3 + w_bytes + 2 * state + 4.0 * R + 4 * 4.0 * N * 3
+              + extra_bytes)
+    return bound(flops, nbytes)
+
+
+def dense_sweep_bound(R, B, N, P, events, w_bytes=0.0, extra_flops=0.0,
+                      extra_bytes=0.0) -> dict:
+    """The bound as it was counted before the row lists: every evaluation
+    sums all N x N terms (a multiply and an add each), one evaluation per
+    event plus one per replica-frame, and each event races 2N candidates (a
+    log, a divide and a compare each)."""
+    flops = 2.0 * N * N * (events + R * B) + 6.0 * N * events + extra_flops
+    state = 4.0 * R * (2 * N + 5 * P + 2)
     nbytes = (4.0 * B * N * 3 + w_bytes + 2 * state + 4.0 * R + 4 * 4.0 * N * 3
               + extra_bytes)
     return bound(flops, nbytes)
@@ -253,8 +309,9 @@ def phase_k2(dev):
 
 
 def _k1_inputs(dev, replicas, frames, n=N_SITES, protons=N_PROTONS, box=BOX,
-               seed=0):
-    """Random bench-like state and a block of W from stage 1."""
+               seed=0, fermi=FERMI, cutbuf=(CUTOFF, BUFFER)):
+    """Random bench-like state and a block of W from stage 1 (Fermi `fermi`
+    within cutoff + buffer `cutbuf`)."""
     import numpy as np
     import torch
 
@@ -269,8 +326,8 @@ def _k1_inputs(dev, replicas, frames, n=N_SITES, protons=N_PROTONS, box=BOX,
     block = (base[None] + rng.normal(scale=0.03, size=(frames, n, 3))
              ).astype(np.float32)
     cell = Cell.cubic([box] * 3, device=dev)
-    model = PairRates(cell, Fermi(a=FERMI[0], b=FERMI[1], c=FERMI[2]).to(dev),
-                      CUTOFF, BUFFER)
+    model = PairRates(cell, Fermi(a=fermi[0], b=fermi[1], c=fermi[2]).to(dev),
+                      *cutbuf)
     pos = torch.from_numpy(block).to(dev)
     ens = init_replicas(torch.Generator().manual_seed(seed), replicas, n,
                         protons, pos[0], device=dev)
@@ -457,57 +514,275 @@ def _k1_check(label, args, got, want, frame0, box, kw) -> float:
                                    _dense_margin(w, frame0, kw)))
 
 
-def phase_k1(dev):
-    """K1 against kmc_sweep_streamed_reference on the same W: at R=1024 with
-    stale off and on; at N=256, where W[f] no longer fits in shared memory and
-    the kernel reads it from global memory; and at the main path's launch
-    shape (all replicas, one print span of frames), timed there too."""
-    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+OUT_KEYS = ("occ", "labels", "sites", "tlast", "disp_base", "u_rem",
+            "ev_count", "site_disp", "prev_pos", "trunc")
 
+
+def _digests(out) -> dict:
+    """SHA-256 of each output of a dense sweep (K1, K3), over its bytes."""
+    return {k: hashlib.sha256(out[k].detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest() for k in OUT_KEYS}
+
+
+# SHA-256 of every output of K1 and K3 at the fixed-seed cases of phase_k1
+# and phase_k3, recorded on an NVIDIA H100 80GB HBM3 from the kernels as
+# they were before the sparse event loop (dense W staged in shared memory,
+# or read from global memory where it did not fit, every row summed over
+# every column). The kernels must reproduce them bit for bit.
+PARENT_DIGESTS = {
+    "R=1024 B=16 stale=False": {
+        "occ": "1620b08d8aa9a242b976c9646c260b53b3167597eff56db4230613678a770e07",
+        "labels": "2c97c1d7b7f84199eb4d9fd8e931d5675d757b8471a657b941980d9b35f14b0b",
+        "sites": "8ff5cbf1911f9f254e7cab94111bab651dcd38e5c02ad2b54d8a6e077fe0281e",
+        "tlast": "ea7f9a241df41c9874d4b00b8c44b806de21c26f5bcbb9ea16382612870a6b1c",
+        "disp_base": "b41389ffddb60dbee09ec0b70dcacf2d4a38eb93f24f4a59446a96f68163440d",
+        "u_rem": "1cd13f30c3d7b7ea5c4044e5f318df79575d9a3f7c42a47f36061c15e90e2b22",
+        "ev_count": "840bcdb64e785b594e06f85df3fac447caa366b60dbdf2a3bac276759e663c77",
+        "site_disp": "4b6e62530bb6fd53f02663b089dd417d62655273b3483f4f3daf3d87984b9641",
+        "prev_pos": "7489e880640af4a3fbd515bee0d8731b19241a3aba4413dd0adca489a23d6420",
+        "trunc": "63c88a25bd280c466d49fe294bc6c397e9c1d03dda2a52a1a24913021935ed35",
+    },
+    "R=1024 B=16 stale=True": {
+        "occ": "8f01eb9e10b52cca43f0d2c1d3c09766f280ea4cfd9f85d2e1f549ca01c5f712",
+        "labels": "e078f2e126ea5a08ad8ad2471e541e9f80ac7ef87fa9b12deaefbe8027d1e82d",
+        "sites": "10a6311f671419e8e4ad1b3b2b0954414df69e6224bb3b3b0087f0b023dea9e5",
+        "tlast": "7c933a2d72bd5533d2615377db72433b3cdd77d297e7e6e8f2570b398db0dddd",
+        "disp_base": "ff5577eab42c2e67f75ac63d74f688e83d28fb60691e20b59b9512d1e10d4f71",
+        "u_rem": "00d5421398499f5a116a61c22d7576a35810f108abb6461da2aae64b7e46dbf6",
+        "ev_count": "2056079f2d3bee94373a1bb409dc9cd663ead58bde2a2743237edbe197fc7640",
+        "site_disp": "4b6e62530bb6fd53f02663b089dd417d62655273b3483f4f3daf3d87984b9641",
+        "prev_pos": "7489e880640af4a3fbd515bee0d8731b19241a3aba4413dd0adca489a23d6420",
+        "trunc": "17cbc7989438b789cac2289d50832cf346653843d4ed3f4ade34d57c55333c9e",
+    },
+    "N=256 R=256 B=8 stale=False": {
+        "occ": "ff8df86daef26d7334b07974904c0dcae897cb768afc0caaa3cb076b40206363",
+        "labels": "e248b7cc26faa690611012eec27612461e8b3c1b2a1a4529d7e5beb1c88a6cdb",
+        "sites": "b2a34af7416c3abe28b1d6f7454660f8a14828e39e14e194c507966aecfc0709",
+        "tlast": "6cb977733a7f4dcc3a2e89c8bc57beaaf9012e2e165994a80a7cc44001e8f10c",
+        "disp_base": "7b545f1b3f4f569703b4f7ef8060c4252fba0f5c225ac70fbaf2408416f6594e",
+        "u_rem": "e27a785731c08337954c4d695afcbeba85d7a0d6dd25c1340da2626225c35bfa",
+        "ev_count": "eeda06ba6f568ae61ccbe2adb29c1b76f6ee63641842688d7eaab3c07422d3bc",
+        "site_disp": "55fa7a87dc14f320bc17c45fb7fd37f41622750efd58addffa47dcee84782447",
+        "prev_pos": "a47e41143e06f7c1b26f94d9e278570581122ea041b6b31482243704d09e47da",
+        "trunc": "a41ed4e76c708fa912b3f20d1c62d4ee9d89f0bd29098e3e4712d8588675a5d9",
+    },
+    "N=256 R=256 B=8 stale=True": {
+        "occ": "f1881e4062f8b70186777990afa4a159b7f31a035ae96b2832dd051549e128de",
+        "labels": "93d007d68a84791543db9dfacc6f90fac562fa15172b0b7848dd568a4516e75e",
+        "sites": "331dccd4f2ead07a48d9b8a9f5618b19e554259ae65d15e34a68867f6b4d6864",
+        "tlast": "e4f18b16a01e6502d03fb82d59636205cf7f3341cd4727c8557bffda4178783c",
+        "disp_base": "483993a29b542cfeea8bdd22bba1c046f587e1ffb0985ebf2506e355318e34a9",
+        "u_rem": "bfdfb2f6e3a6c51989cb5aff0ec7065a2b84f3828c94e8425e32f50a4f168133",
+        "ev_count": "1488492fb1ea5d36f049d8bc07d9e674657b8b60163de2a4046d05ebff0ea6cd",
+        "site_disp": "55fa7a87dc14f320bc17c45fb7fd37f41622750efd58addffa47dcee84782447",
+        "prev_pos": "a47e41143e06f7c1b26f94d9e278570581122ea041b6b31482243704d09e47da",
+        "trunc": "2acc261a9ab3c3b422458a54ffb04dda0692580f17626f73d663f3032cac9310",
+    },
+    "R=16384 B=100 (main path's shape)": {
+        "occ": "41ad9bcacbf5c099f3d6abbe575e4ca2f99b91e64ae4c188df686fa948e3ae31",
+        "labels": "79f07551ab8b418d7eb763574dd6529f3c1e3c11ff7f88d02ff2db712fe437fb",
+        "sites": "e49b1b918d0cb59c5dd2755ede3b99a3b6e0b3f454d58d75a6698ced870126f5",
+        "tlast": "b192daff0859b7abcfe31167e5fd34d964acfa237c2208d4282fb7c7afb2261f",
+        "disp_base": "7f128f30aaec6362f74c516dc72e65adb95e80caaccf47ee153a251d56f8fa45",
+        "u_rem": "72828745bd540374fc881197f559a6ea137d3acb633b6aa4b9ef7e826cfe3ecc",
+        "ev_count": "c90229eef841749a76c4476cd01e0f052cd09dc7750d6168fae618c208305ba2",
+        "site_disp": "219488ef119c6bc8619451f4c8935cdb22a283d5a9bccc149251a5516c5b35aa",
+        "prev_pos": "2569e7a6e8dadc5f10afad1cdcd349684f42ab11a6ab2cbcb1fd5709444fdbd9",
+        "trunc": "61c89faf7ede6e9aa3b2d0ead71b6a1628ba74a8ed10233889d11fa198d76a8e",
+    },
+    "kind 0 R=1024 B=100": {
+        "occ": "29df896f424378aee753cb6a99eacdd5e1920b199822a36ecbfcf59bed9b742e",
+        "labels": "edb9990d1d3b3e4f3128204c5f3e32115265f5f661c200a07b669ce5b01924a9",
+        "sites": "aa70916d511946e68e9cd6b2443aa5469788d8b52d163e124c87dc60f2c9fd85",
+        "tlast": "7a5bc86b46699aa7519b0222a6eafbd4ee222b7f90c04fd29bf59b4a045a7882",
+        "disp_base": "735cf30424889509a522800bfac5309e6b8b74bb212042a49c2ca02827669c23",
+        "u_rem": "82b47cf54c3ed6c52231be51ccfa76bf744a53ab468e03e8501ed00a4843a25f",
+        "ev_count": "12713b788a1a4334acb724ff2488b3516de751c8c8ea6c3d2c8d171f9e04cccd",
+        "site_disp": "91894c7efdfe9e71a7fd24c2b5351df92721aef46c5b3dddf793ee5f1c26f870",
+        "prev_pos": "4a777dce842b6b16f2b86a4906cf9aa6a1846b67192099d168b775a68fa07749",
+        "trunc": "9ea05764aa634d44ffeb98a088b35a8398d6915d55e92874f9669257f6890e28",
+    },
+    "kind 4 R=1024 B=100": {
+        "occ": "b56414762d705c9b762270182b705b05632421d6115fd09b699aeaa5ca6ede17",
+        "labels": "89c20acad781507397743791765762b7c643a0f81e71ce98863385aea23aeb35",
+        "sites": "7fe407e3bb0dab607ae7746f3e6c1887848260b2d3ed48987c2249b2c4815c66",
+        "tlast": "09fbe09000dd4421dd1e8a12b17863a28839b8c5656a1a9f0dcfaf8e1499a453",
+        "disp_base": "53a5789c1c413e0f4856ad3a2dd3ccf5cc14a334cb8badd6d751cd07d6cf1fc5",
+        "u_rem": "d8f826490ded9d4552eefa6c048722c5982e6c39146d9834d37d3f90be9a8dbc",
+        "ev_count": "95bcd52c12fdc85acff0a47196dac2058effd05fc939dfb930967d3d74de81ff",
+        "site_disp": "91894c7efdfe9e71a7fd24c2b5351df92721aef46c5b3dddf793ee5f1c26f870",
+        "prev_pos": "4a777dce842b6b16f2b86a4906cf9aa6a1846b67192099d168b775a68fa07749",
+        "trunc": "eba9bf2f0f1cdb6707e550ae28b267eacad03b6f207324af4f5bf89d0ff822c0",
+    },
+    "kind 1 R=256 B=16": {
+        "occ": "a8ff1ec635478cbdcae76a0f8b4846daafee462bf354f9437f98b741db0e3810",
+        "labels": "30c0ac222aa0ffd915aa57c47646d64a631c7f1749a619280a4cff99b3c06b7e",
+        "sites": "8b7a087aeac4825d005c4cce8f7ff6a3d3f09ab73c43db2086648a4f7aeb8197",
+        "tlast": "a84f075fb7b485aaa216dee8aad24c0a3f21cbdc569ed2d162f962e6047ccdfe",
+        "disp_base": "435ecc6abdee6ac5a9043c243141b7411e0689430168f733e61432fc1560a076",
+        "u_rem": "da35e1adb9b0496f23ee94834ed16e9141db2733b10c72e016a85dc3d2ca2330",
+        "ev_count": "ecbb3c9e92e2dfa802fc15ab7a693cb04fc93b7d85d279001b02c4ac10571758",
+        "site_disp": "ca035e1806aa5fd86723ce3838e133a5deefff2775a03628306fe5dd37ad3563",
+        "prev_pos": "270a72a890069846f549badabeefd5c9a04f04dcd0a4a03e0800f090bbdc9528",
+        "trunc": "fae2144922750e28f3c3fb4395da381df86972d8ed6518120561543fe2ec854d",
+    },
+    "kind 2 R=256 B=16": {
+        "occ": "07a2d735cf36b2a060b3ad8c917c97993f6d20b1f080740d30b02bafad8a4ec1",
+        "labels": "9ce6d8cff0d41f9447e92b98e848af429966c5ea996491931005c8c8ee9499c3",
+        "sites": "7a92080aa55685611a9044340ea1ca96608f8445e51340acca1d3bfdd5a92477",
+        "tlast": "3ca5d407811d700d84f69b1743bde09670d435fd448ad6c06c87279459a470a5",
+        "disp_base": "822199e43f0a963387d1c9c3acc6452e366f0e865ea69587be71110f7939e3a6",
+        "u_rem": "ba1fa444b90cc51aaad656d0286593b5615b7d603fb838aa145ca3c1fc4325fe",
+        "ev_count": "a5d65384467b813722508e3b908b6faec33cd83e9533b411ff93e46deb001fd6",
+        "site_disp": "ea95879c2eb037ba775846e8a01125e972ceef40c02a50a6cf43b03d9ea633ce",
+        "prev_pos": "35b614de4f12e5c343a229eff1ba3273bbb757efd5b02b91dee747adf8754ad8",
+        "trunc": "f2668f88710d07f95848938d4c2f736732470950d12ce49b3bcc69ff62dc2ce8",
+    },
+    "kind 3 R=256 B=16": {
+        "occ": "5bdc039e35b7c5c7f8f25f19a3b20ccdf707c751312c459939cccfd7887e02a1",
+        "labels": "cb4b706e031869b0a6c7e9ab707adcda4985285f1cccb40129b8d30c734d29a4",
+        "sites": "c73d4d41269cdc60dcfec5ee8828925dbe8d2b0c5732bcf51ffb0067e79e4fb4",
+        "tlast": "6fe2086aad677071d479849b5353fce81fc2acd84e5ec2ea1c263f90aa8501b0",
+        "disp_base": "1b47b1898be920f731374c2fc7bfd5f281eeb6a3a9a2449c2056ffb338e1cf29",
+        "u_rem": "20085e77087b92bd02a38b676b6c3c8ee31241edf3e210fe8b6682464a0b1dcc",
+        "ev_count": "760ab46aa0a02fbf9e63cee9072fdd89a7233e2bfd25ac2ec4c52fb118494926",
+        "site_disp": "75dea189b7e416745f54aa2a640275984920a7b7369b264641c8e0e1a3cdce62",
+        "prev_pos": "beb5cd907e2985ffd4c95c1c4e5925aa3b77a24aec68e9a3af721e68158063b0",
+        "trunc": "410d3d5762be78783127f8e1ec6213d0c7038719d968500f9ba2ef92b59782c6",
+    },
+    "whole rows N=256 R=256 B=8": {
+        "occ": "477b13a240fe26b71d30bd5cc3f2483648718a6819c6e1f5744be0c0a2b15a90",
+        "labels": "bf28380063785b5feafbda0d95ebd9b2463d9dae1b525bc5c8ee7296b3171139",
+        "sites": "5ab8fea65d625c7924e408503e023362c35582e1a9d9261bfd3219ab4e5dc98a",
+        "tlast": "70a9cd58e970136b0e4e3dc15157a232c6aacbf22712123ba52a0e7eb95e9450",
+        "disp_base": "c7e44836e7f1aa8fafa9e0f3f23cdd2ac5f659f9ecfa04ed017842048edf12ae",
+        "u_rem": "8187295f91dbbc304fa7d92b6f7273943bf440aa7f4b4ebfd45184705317edfe",
+        "ev_count": "beef046723ad173a6c06369bd057e32abe4269b3ab7ed2c5a8058173efbca3f4",
+        "site_disp": "55fa7a87dc14f320bc17c45fb7fd37f41622750efd58addffa47dcee84782447",
+        "prev_pos": "a47e41143e06f7c1b26f94d9e278570581122ea041b6b31482243704d09e47da",
+        "trunc": "5e0f2c20d0242531c7aa78e02ebf9933fb0d1998aa4e4df88967a349bea46933",
+    },
+    "whole rows kind 0 N=224 R=256 B=8": {
+        "occ": "bb2a9cf39eb2625061c31cacebd17cb98b360ac1ce2eb3e62e7fcd0938501d45",
+        "labels": "8b08b793ecbaefe3ab3c36a90915261960d7bd40d59b61f8066fe462f800bf6e",
+        "sites": "451625392b052a086a52d2a10ef8dd46aa5d4c874fdbabb5bd7225c2869b56ae",
+        "tlast": "3325176303113636d62b545340ac220867728d3db6a7dc500fd6d6dfe89994b2",
+        "disp_base": "052424e843a1aec5caeed22e9ecdb8c2d835b801ed0956503ca560a478dc5b6d",
+        "u_rem": "e1dd95637a7b82443792277aea4dba2689e274cf115a65977923417aa914b53b",
+        "ev_count": "3a5fce006b504ea1569424645183ac99cd73a59d2ea87133add28bf5f9976d94",
+        "site_disp": "c58fca0a8b98ffb8565837594b617b4470d400298e14285645112c8e3091b9f5",
+        "prev_pos": "d3a1650edfdbcade9a79186e827c3ab783df9e1da0495385319fc91b7e38d050",
+        "trunc": "9263ddfed709dc5114353840d120ed8bf0f37959391058076ad03bb3f983fe09",
+    },
+}
+
+
+def _same_bits(tag, label, out):
+    """Hold a sweep's outputs to PARENT_DIGESTS[label], output by output."""
+    got = _digests(out)
+    want = PARENT_DIGESTS.get(label)
+    if want is None:
+        raise AssertionError(f"{tag} {label}: no recorded digest")
+    differ = [k for k in OUT_KEYS if got[k] != want[k]]
+    if differ:
+        raise AssertionError(f"{tag} {label}: outputs {differ} differ from the "
+                             "recorded digests")
+    say(f"[{tag}] {label}: all {len(OUT_KEYS)} outputs equal the recorded "
+        "digests bit for bit")
+
+
+# Whole rows: cutoff + buffer past half the box diagonal and a Fermi law
+# that stays above float32's smallest number there, so every pair has a
+# rate and every list is the whole row (too long for shared memory)
+WHOLE_FERMI = (FERMI[0], FERMI[1], 0.5)
+
+
+def _k1_cases(dev):
+    """K1's fixed-seed cases: (label, sweep args, frame0, box, kw). R=1024
+    with stale off and on; N=256 (the size whose dense W did not fit in
+    shared memory) with stale off and on; N=256 with whole rows; and the
+    main path's launch shape (all replicas, one print span of frames)
+    last."""
     box3 = (BOX,) * 3
-    if not kss.w_in_shared_memory(N_SITES, dev):
-        raise AssertionError(f"K1 at N={N_SITES} should stage W in shared memory")
-    worst = 0.0
+    cases = []
+    args = _k1_inputs(dev, replicas=1024, frames=16)
     for stale in (False, True):
-        args = _k1_inputs(dev, replicas=1024, frames=16)
         kw = dict(tile=128, max_events=MAX_EVENTS, dt=DT, seed=1, stale=stale)
-        got = kss.kmc_sweep_streamed(*args, 1000, box3, 0, **kw)
-        want = kss.kmc_sweep_streamed_reference(*args, 1000, box3, 0, **kw)
-        worst = max(worst, _k1_check(f"R=1024 B=16 stale={stale}", args, got,
-                                     want, 1000, box3, kw))
-
-    # the global-memory W path: N=256 at bench.py's site and proton density
+        cases.append((f"R=1024 B=16 stale={stale}", args, 1000, box3, kw))
     n_big = 256
-    if kss.w_in_shared_memory(n_big, dev):
-        raise AssertionError(f"K1 at N={n_big} should read W from global memory")
     box_big = BOX * (n_big / N_SITES) ** (1.0 / 3.0)
     args = _k1_inputs(dev, replicas=256, frames=8, n=n_big,
                       protons=N_PROTONS * n_big // N_SITES, box=box_big)
     for stale in (False, True):
         kw = dict(tile=128, max_events=MAX_EVENTS, dt=DT, seed=1, stale=stale)
-        got = kss.kmc_sweep_streamed(*args, 0, (box_big,) * 3, 0, **kw)
-        want = kss.kmc_sweep_streamed_reference(*args, 0, (box_big,) * 3, 0, **kw)
-        worst = max(worst, _k1_check(
-            f"N={n_big} (W from global memory) R=256 B=8 stale={stale}", args,
-            got, want, 0, (box_big,) * 3, kw))
-
-    # the main path's launch shape
+        cases.append((f"N={n_big} R=256 B=8 stale={stale}", args, 0,
+                      (box_big,) * 3, kw))
+    args = _k1_inputs(dev, replicas=256, frames=8, n=n_big,
+                      protons=N_PROTONS * n_big // N_SITES, box=box_big,
+                      fermi=WHOLE_FERMI, cutbuf=(box_big, 0.0))
+    kw = dict(tile=128, max_events=MAX_EVENTS, dt=DT, seed=1)
+    cases.append((f"whole rows N={n_big} R=256 B=8", args, 0, (box_big,) * 3, kw))
     args = _k1_inputs(dev, replicas=REPLICAS, frames=PRINT_FREQ)
     kw = dict(tile=128, max_events=MAX_EVENTS, dt=DT, seed=1)
+    cases.append((f"R={REPLICAS} B={PRINT_FREQ} (main path's shape)", args, 0,
+                  box3, kw))
+    return cases
+
+
+def _plan_text(plan, caps) -> str:
+    return (f"rows and columns of up to {tuple(caps)} entries; block of "
+            f"{plan['warps']} warps, {plan['smem']} bytes of shared memory "
+            f"({plan['list_budget']} for lists; the lists in "
+            f"{'shared' if plan['lists_in_smem'] else 'global'} memory), "
+            f"{plan['blocks_per_sm']} blocks per SM")
+
+
+def phase_k1(dev):
+    """K1 against kmc_sweep_streamed_reference on the same W, and against
+    the recorded digests, at every case of :func:`_k1_cases` (the whole-row
+    case must put its lists in global memory); the main path's launch shape
+    timed too."""
+    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+
+    worst = 0.0
+    *small, main = _k1_cases(dev)
+    for label, args, frame0, box, kw in small:
+        n = args[1].shape[1]
+        caps = kss.list_caps(args[0]).tolist()
+        plan = kss.launch_plan(n, caps, dev)
+        say(f"[k1] {label}: {_plan_text(plan, caps)}")
+        if label.startswith("whole rows") and (
+                caps != [n - 1, n - 1] or plan["lists_in_smem"]):
+            raise AssertionError(f"K1 {label}: not whole rows in global memory")
+        got = kss.kmc_sweep_streamed(*args, frame0, box, 0, **kw)
+        want = kss.kmc_sweep_streamed_reference(*args, frame0, box, 0, **kw)
+        _same_bits("k1", label, got)
+        worst = max(worst, _k1_check(label, args, got, want, frame0, box, kw))
+
+    label, args, frame0, box3, kw = main
     ms, got = cuda_ms(lambda: kss.kmc_sweep_streamed(*args, 0, box3, 0, **kw),
                       reps=5)
     plain_ms, want = cuda_ms(
         lambda: kss.kmc_sweep_streamed_reference(*args, 0, box3, 0, **kw),
         reps=1)
+    caps = kss.list_caps(args[0]).tolist()
+    plan = kss.launch_plan(N_SITES, caps, dev)
     say(f"[k1] R={REPLICAS} B={PRINT_FREQ} N={N_SITES}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    worst = max(worst, _k1_check(
-        f"R={REPLICAS} B={PRINT_FREQ} (main path's shape)", args, got, want,
-        0, box3, kw))
+        f"plain {plain_ms:.3f} ms; {_plan_text(plan, caps)}")
+    _same_bits("k1", label, got)
+    worst = max(worst, _k1_check(label, args, got, want, 0, box3, kw))
     events = int(want["ev_count"].sum() - args[10].sum())
-    b = sweep_bound(REPLICAS, PRINT_FREQ, N_SITES, N_PROTONS, events,
-                    w_bytes=4.0 * PRINT_FREQ * N_SITES ** 2)
-    say(f"[k1] bound {b['bound_ms']:.3f} ms ({b['bound_by']}; {events} events)")
+    work = sweep_work(args[0], N_PROTONS)
+    w_bytes = 4.0 * PRINT_FREQ * N_SITES ** 2
+    b = sweep_bound(REPLICAS, PRINT_FREQ, N_SITES, N_PROTONS, events, work,
+                    w_bytes=w_bytes)
+    dense = dense_sweep_bound(REPLICAS, PRINT_FREQ, N_SITES, N_PROTONS, events,
+                              w_bytes=w_bytes)
+    say(f"[k1] bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {events} events; "
+        f"{work['pairs']:.1f} occupied x vacant pairs with W != 0 per whole "
+        f"evaluation, {work['rows']:.2f} rows of {work['vacant']:.2f} vacant "
+        f"terms summed again per event); counting every pair, "
+        f"{dense['bound_ms']:.4f} ms")
     # no single PyTorch call runs this event loop
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": None}
@@ -527,10 +802,13 @@ def _k3_law(kind):
             4: lambda: laws.FermiAngle(a=a, b=b, c=c, theta=THETA)}[kind]()
 
 
-def _k3_inputs(dev, replicas, frames, kind, seed=0):
+def _k3_inputs(dev, replicas, frames, kind, seed=0, n=N_SITES,
+               protons=N_PROTONS, box=BOX, whole=False):
     """Positions of a block (and for kind 4 each donor's grouped P atom),
     a model of the deployment, and random bench-like replica state
-    [prev, s, occ, labels, sites, tlast, disp_base, u, evc]."""
+    [prev, s, occ, labels, sites, tlast, disp_base, u, evc]. With `whole`
+    (kind 0): the WHOLE_FERMI law within a cutoff of the box length, so
+    every pair is in range."""
     import numpy as np
     import torch
 
@@ -539,13 +817,13 @@ def _k3_inputs(dev, replicas, frames, kind, seed=0):
     from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
 
     rng = np.random.RandomState(seed)
-    base = rng.uniform(0, BOX, size=(N_SITES, 3)).astype(np.float32)
-    pbase = rng.uniform(0, BOX, size=(N_P, 3)).astype(np.float32)
-    block = (base[None] + rng.normal(scale=0.03, size=(frames, N_SITES, 3))
+    base = rng.uniform(0, box, size=(n, 3)).astype(np.float32)
+    pbase = rng.uniform(0, box, size=(N_P, 3)).astype(np.float32)
+    block = (base[None] + rng.normal(scale=0.03, size=(frames, n, 3))
              ).astype(np.float32)
     eblock = (pbase[None] + rng.normal(scale=0.03, size=(frames, N_P, 3))
               ).astype(np.float32)
-    cell = Cell.cubic([BOX] * 3, device=dev)
+    cell = Cell.cubic([box] * 3, device=dev)
     law = _k3_law(kind).to(dev)
     pos = torch.from_numpy(block).to(dev)
     extras = torch.from_numpy(eblock).to(dev)
@@ -553,10 +831,16 @@ def _k3_inputs(dev, replicas, frames, kind, seed=0):
         model = AnglePairRates.from_first_frame(cell, law, CUTOFF, BUFFER,
                                                 pos[0], extras[0], GROUP)
         pgrp = model.grouped_positions(extras)
+    elif whole:
+        from cmdlmc_tpu_torch.rates.laws import Fermi
+
+        a, b, c = WHOLE_FERMI
+        model = PairRates(cell, Fermi(a=a, b=b, c=c).to(dev), box, 0.0)
+        pgrp = None
     else:
         model, pgrp = PairRates(cell, law, CUTOFF, BUFFER), None
-    ens = init_replicas(torch.Generator().manual_seed(seed), replicas, N_SITES,
-                        N_PROTONS, pos[0], device=dev)
+    ens = init_replicas(torch.Generator().manual_seed(seed), replicas, n,
+                        protons, pos[0], device=dev)
     rep = ens.replicas
     state = [ens.prev_pos, ens.site_disp, rep.occ, rep.proton_of_site.float(),
              rep.site_of_proton, rep.t_last_jump, rep.disp_base,
@@ -603,26 +887,17 @@ def phase_k3(dev):
     """K3 against kmc_sweep_reference: at the in-kernel route's launch shape
     (R=1024, B=100; kind 0 with bench.py's Fermi law and kind 4 with the
     angle gate of the variant deployment), timed there; at R=256, B=16 for
-    kinds 1-3. Then K3 against stage 1 + K1 on the same state (kind 0, the
-    two routes' agreement), K3 at 2, 4, 8 and 16 warps per block, and the
-    two routes timed at 8, 16 and 128 RNG tiles."""
-    import ctypes
-
+    kinds 1-3; with whole rows at the route's largest N (224; the lists in
+    global memory). Then K3 against stage 1 + K1 on the same state (kind 0,
+    the two routes' agreement), K3 at 2, 4, 8 and 16 warps per block, and
+    the two routes timed at 8, 16 and 128 RNG tiles."""
     import torch
 
-    from cmdlmc_tpu_torch.ops import build
+    from cmdlmc_tpu_torch.engine import fused
     from cmdlmc_tpu_torch.ops import kmc_sweep as ks
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 
     R, B = INKERNEL_REPLICAS, PRINT_FREQ
-    if not ks.fits_in_shared_memory(N_SITES, dev):
-        raise AssertionError(f"K3 at N={N_SITES} should fit in shared memory")
-    lib, need, optin = build.library(), ctypes.c_int(0), ctypes.c_int(0)
-    for warps in (2, 4, 8, 16):  # the route rule's formula against the kernel's
-        build.check(lib.cmdlmc_kmc_sweep_smem(N_SITES, warps, 0, ctypes.byref(need),
-                                              ctypes.byref(optin)), "smem plan")
-        if need.value != ks.smem_bytes(N_SITES, warps):
-            raise AssertionError(f"smem_bytes disagrees with the kernel at {warps} warps")
     worst, result = 0.0, {}
     for kind in (0, 4):
         model, pos, pgrp, state = _k3_inputs(dev, R, B, kind)
@@ -632,15 +907,28 @@ def phase_k3(dev):
             lambda: _k3_call(model, pos, pgrp, state, 0, plain=True, **kw), reps=1)
         say(f"[k3] kind {kind} R={R} B={B} N={N_SITES} P={N_PROTONS}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        _same_bits("k3", f"kind {kind} R={R} B={B}", got)
         worst = max(worst, _k3_check(f"kind {kind} R={R} B={B}", model, pos,
                                      pgrp, state, got, want, 0, kw))
         events = int(want["ev_count"].sum() - state[8].sum())
         angle_bytes = 4.0 * B * N_SITES * 3 if kind == 4 else 0.0
-        b = sweep_bound(R, B, N_SITES, N_PROTONS, events,
+        w = ks.inkernel_tables(pos, ks.law_params_array(model.law), model.box,
+                               pgrp, kind=kind, cutbuf=model.cutbuf)
+        work = sweep_work(w, N_PROTONS)
+        b = sweep_bound(R, B, N_SITES, N_PROTONS, events, work,
                         extra_flops=W_BUILD_OPS * B * N_SITES ** 2,
                         extra_bytes=angle_bytes)
+        dense = dense_sweep_bound(R, B, N_SITES, N_PROTONS, events,
+                                  extra_flops=W_BUILD_OPS * B * N_SITES ** 2,
+                                  extra_bytes=angle_bytes)
+        caps = ks.range_caps(pos, model.box, model.cutbuf).tolist()
+        plan = ks.launch_plan(N_SITES, caps, dev)
         say(f"[k3] kind {kind}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
-            f"{events} events)")
+            f"{events} events; {work['pairs']:.1f} occupied x vacant pairs "
+            f"with W != 0 per whole evaluation, {work['rows']:.2f} rows of "
+            f"{work['vacant']:.2f} vacant terms summed again per event); "
+            f"counting every pair, {dense['bound_ms']:.4f} ms; "
+            f"{_plan_text(plan, caps)}")
         if kind == 0:
             # no single PyTorch call runs this event loop
             result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
@@ -650,8 +938,24 @@ def phase_k3(dev):
         kw = _k3_kw(model)
         got = _k3_call(model, pos, pgrp, state, 500, **kw)
         want = _k3_call(model, pos, pgrp, state, 500, plain=True, **kw)
+        _same_bits("k3", f"kind {kind} R=256 B=16", got)
         worst = max(worst, _k3_check(f"kind {kind} R=256 B=16", model, pos,
                                      pgrp, state, got, want, 500, kw))
+    n = fused.INKERNEL_MAX_SITES
+    label = f"whole rows kind 0 N={n} R=256 B=8"
+    model, pos, pgrp, state = _k3_inputs(
+        dev, 256, 8, 0, n=n, protons=N_PROTONS * n // N_SITES,
+        box=BOX * (n / N_SITES) ** (1.0 / 3.0), whole=True)
+    caps = ks.range_caps(pos, model.box, model.cutbuf).tolist()
+    plan = ks.launch_plan(n, caps, dev)
+    say(f"[k3] {label}: {_plan_text(plan, caps)}")
+    if caps != [n - 1, n - 1] or plan["lists_in_smem"]:
+        raise AssertionError(f"K3 {label}: not whole rows in global memory")
+    kw = _k3_kw(model)
+    got = _k3_call(model, pos, pgrp, state, 0, **kw)
+    want = _k3_call(model, pos, pgrp, state, 0, plain=True, **kw)
+    _same_bits("k3", label, got)
+    worst = max(worst, _k3_check(label, model, pos, pgrp, state, got, want, 0, kw))
     result["max_abs_err"] = worst
 
     # the two routes on the same state: K3 against stage 1 + K1 (kind 0)
@@ -674,15 +978,16 @@ def phase_k3(dev):
 
     # launch shape: replicas (warps) per block; the results must not move
     times = {}
+    caps = ks.range_caps(pos, model.box, model.cutbuf).tolist()
     for warps in (2, 4, 8, 16):
         t, out = cuda_ms(lambda: _k3_call(model, pos, None, state, 0,
                                           warps=warps, **kw), reps=5)
-        times[warps] = t
+        times[warps] = (t, ks.launch_plan(N_SITES, caps, dev, warps)["blocks_per_sm"])
         same = all(torch.equal(out[k], k3_out[k]) for k in k3_out)
         if not same:
             raise AssertionError(f"K3 at {warps} warps per block differs")
     say(f"[k3] warps per block at R={R} B={B} kind 0: " + ", ".join(
-        f"{w_}: {t:.3f} ms" for w_, t in times.items())
+        f"{w_}: {t:.3f} ms ({n} blocks per SM)" for w_, (t, n) in times.items())
         + f" (default {ks.WARPS_PER_BLOCK}); results identical")
 
     # route timing at 8, 16 and 128 RNG tiles, in turns: K3, stage 1 + K1,
@@ -1924,7 +2229,10 @@ def phase_profile(card: str):
     """Where the end-to-end run's time goes: the bench.py deployment with
     fresh and with stale rates, both top-K supercells and the water N=216
     deployment (through the kmc_water main), each traced with
-    torch.profiler after a warm run. Device busy time is the union of kernel
+    torch.profiler after a warm run. The fresh run is traced four times, in
+    turns with K1's lists sized on the host (LIST_SCRATCH_BUDGET = 0: the
+    host waits for the counted lengths before each launch) and on the device
+    (the default: no wait), to show what the host's wait costs. Device busy time is the union of kernel
     and copy intervals in the trace; idle is the rest of the traced wall
     time; the box x4 run's Verlet epilogue is the device time launched from
     its stage 1 but for K5 and K6. Each run's idle time is split at the
@@ -1953,7 +2261,10 @@ def phase_profile(card: str):
         f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
     dense = {"K1": "kmc_sweep_streamed_kernel", "K2": "pairwise_kernel"}
     knn = {"K5": "knn_tables_kernel", "K6": "knn_sparse_kernel"}
-    runs = [("fresh", write_inputs(WORK, frames=1024, replicas=REPLICAS), dense),
+    fresh = write_inputs(WORK, frames=1024, replicas=REPLICAS)
+    runs = [("fresh, host-sized lists", fresh, dense), ("fresh", fresh, dense),
+            ("fresh again", fresh, dense),
+            ("fresh, host-sized lists again", fresh, dense),
             ("stale", write_inputs(WORK, frames=1024, replicas=REPLICAS, stale=True),
              dense),
             ("supercell", write_inputs(WORK, frames=512, replicas=SC_REPLICAS,
@@ -1962,7 +2273,11 @@ def phase_profile(card: str):
             ("box4", write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4"),
              {"K4": "topk_sweep_kernel", **knn}),
             ("water", water_cfg, {"K7": "water_sweep_kernel", "K5": "knn_tables_kernel"})]
+    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+
+    scratch_budget = kss.LIST_SCRATCH_BUDGET
     for name, cfg, kernels in runs:
+        kss.LIST_SCRATCH_BUDGET = 0 if "host-sized" in name else scratch_budget
         if name == "water":
             def run(out, cfg=cfg):
                 out.write(_run_water(cfg, "cuda")[0])
@@ -1978,7 +2293,7 @@ def phase_profile(card: str):
             run(buf)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        trace = WORK / f"e2e_trace_{name}.json"
+        trace = WORK / f"e2e_trace_{name.replace(',', '').replace(' ', '_')}.json"
         prof.export_chrome_trace(str(trace))
         all_events = json.loads(trace.read_text())["traceEvents"]
         events = [e for e in all_events
@@ -2012,6 +2327,7 @@ def phase_profile(card: str):
         main_tag, main_kernel = next(iter(kernels.items()))
         say(f"[profile] {name}: {main_tag} ({main_kernel}) "
             f"{_idle_report(all_events, events, main_kernel)}")
+    kss.LIST_SCRATCH_BUDGET = scratch_budget
 
 
 def main() -> int:

@@ -4,9 +4,11 @@ Port of ``cmdlmc_tpu/cli/kmc_water.py`` on its fused path: subcommands
 ``load`` (run a keyword config file), ``config_help`` and ``config_file``;
 column output with Step/Time/position/neighbor/jumps/fps, or xyz output.
 ``--device cuda`` (the default) runs kernels K5 and K7 and raises without a
-card; ``--device cpu`` runs their plain PyTorch versions, so its rows are
-those of the JAX package's fused path in interpret mode (not of the JAX CLI's
-CPU scan backend). HDF5 trajectories wait for ROADMAP A9.
+card; ``--device cpu`` runs their plain PyTorch versions, whose states are
+those of the JAX package's fused path in interpret mode. Each print frame
+shows replica 0's site after that frame and the block-end jumps and
+correction, the JAX CLI's rule on its scan backend. HDF5 trajectories wait
+for ROADMAP A9.
 
     python -m cmdlmc_tpu_torch.cli.kmc_water load water.cfg [--device cpu]
 """
@@ -125,15 +127,15 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
             site_disp = torch.zeros((positions.shape[1], 3), dtype=torch.float32,
                                     device=device)
             prev_pos = positions[0]
-        states, site_disp, prev_pos, trunc = wm.run_water_block_fused(
+        states, site_disp, prev_pos, trunc, site_trace = wm.run_water_block_fused(
             model, states, positions, block.start, site_disp=site_disp,
             prev_pos=prev_pos, dt=dt, seed=settings.seed, tile=tile)
         trunc_total = trunc.sum() if trunc_total is None else trunc_total + trunc.sum()
         frames_total += block.n_frames
-        # the per-frame site trace is not kept on the fused path: every print
-        # frame of the block reports the block-end state
-        site0, jumps0 = (int(v) for v in torch.stack(
-            [states.site[0], states.jumps[0]]).cpu())
+        # each print frame reports replica 0's site after that frame, and the
+        # block-end jumps and correction, as the JAX CLI's scan branch does
+        sites_np = site_trace.cpu().numpy()
+        jumps0 = int(states.jumps[0])
         corr0 = states.correction[0].cpu().numpy()
 
         if not printed_header and not settings.xyz_output:
@@ -149,6 +151,7 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
             step = block.start + i
             if step % settings.print_frequency:
                 continue
+            site0 = int(sites_np[i])
             pos = donors_np[i, site0] + corr0
             fps = (step + 1) / max(_time.time() - start_time, 1e-9)
             if settings.xyz_output:

@@ -4,28 +4,31 @@
 // (pallas_call at ops/kmc_sweep.py:690), without its jump statistics and
 // jump matrix. One launch advances every replica through a whole block of
 // frames. Each frame, every thread block builds that frame's rate matrix
-// W[N, N] in its shared memory from the positions, as the TPU kernel builds
-// it in VMEM (ops/kmc_sweep.py:402-437):
+// from the positions, as the TPU kernel builds it in VMEM
+// (ops/kmc_sweep.py:402-437):
 //   dist = sqrtf((dx^2 + dy^2) + dz^2), d = minimg(pos_i - pos_j);
 //   W[i][j] = law(dist) if dist <= cutoff + buffer and i != j, else 0;
 //   kind 4 (FermiAngle over AngleTopology) also gates on the P-O-O angle at
 //   donor i: v1 = minimg(P(i) - O(i)), dot = -sum v1 . d, and the pair is
 //   allowed when dot <= cos(theta) |v1| dist, which makes W asymmetric.
-// Then the block runs the event loop of event_loop.cuh, the same code K1
-// runs on a W built by stage 1, so the two routes agree wherever their W
-// do. Laws: 0 Fermi, 1 Constant, 2 Exponential, 3 ActivationEnergy (its
-// lax.rsqrt as 1.0f / sqrtf, kmc_common.cuh::apply_law), 4 FermiAngle.
+// It keeps only the nonzero entries, as the lists of event_loop.cuh, and
+// runs the same event loop K1 runs on the lists of a W built by stage 1, so
+// the two routes agree wherever their W do. Laws: 0 Fermi, 1 Constant,
+// 2 Exponential, 3 ActivationEnergy (its lax.rsqrt as 1.0f / sqrtf,
+// kmc_common.cuh::apply_law), 4 FermiAngle.
 //
-// Bound on the H100: operations. The event loop does what K1's does (N*N
-// multiply-adds per rate evaluation per replica, from shared memory); the W
-// build adds N*N distance-and-law evaluations (one expf each) per frame and
-// thread block, so it is repaid only across the block's replicas. Nothing
-// leaves the SM between frames but the replica state at the end; the bytes
-// (positions and state) bound it far less. The design keeps one warp per
-// replica and takes the block's warp count as a launch parameter: fewer
-// warps give more blocks (more SMs busy at the small replica counts this
-// route serves) at the price of more W builds. The route is taken only
-// where W[N, N+1] fits in shared memory.
+// Where the time goes on the H100: the event loop's
+// (csrc/kmc_sweep_streamed.cu) and the lists' build, N*N cheap range tests
+// per frame and thread block
+// (reciprocal box lengths, no division), then the exact distance and law
+// on the pairs that pass, repaid only across the block's replicas. Nothing
+// leaves the SM between frames but the replica state at the end. The
+// block's warp count is a launch parameter (ops/kmc_sweep.py::
+// WARPS_PER_BLOCK): fewer warps give more blocks (more SMs busy at the
+// small replica counts this route serves) at the price of more list builds.
+// The most sites in range of any site (`caps`, an upper bound of every row
+// and column list) are counted on the device by `range_caps_kernel` with
+// the same exact range test before the sweep, so the host never waits.
 //
 // Numerics: build with --fmad=false and without fast math, as K1.
 #include <cuda_runtime.h>
@@ -35,28 +38,35 @@
 #include "device_guard.cuh"
 #include "event_loop.cuh"
 
-// Builds W[f] into the block's shared memory from the frame's positions,
-// every entry bit for bit as the reference computes it, with two savings:
-// * distance and law are symmetric, so each pair i < j is evaluated once and
-// written to W[i][j] and W[j][i]: minimg(p_j - p_i) is exactly
-// -minimg(p_i - p_j), so both entries get the bits the reference computes
-// for them. Kind 4 gates each direction on its own donor's P atom; for row
-// j the reference's dot -sum v1_j . minimg(p_j - p_i) equals
-// (v1_j.x dx + v1_j.y dy) + v1_j.z dz exactly (x - (-y) = x + y). The
-// per-donor terms v1 and cos(theta) |v1| sit in `v1s` [N, 4], past the
-// shared memory of event_loop.cuh;
-// * sqrtf is monotone, so sqrtf(acc) <= cutbuf exactly when acc <= acc_cut,
-// the largest float with that property (found on the host): pairs out of
-// range skip the square root and the law.
+// uint16 slots of a warp's column list (an even count: 4-byte aligned).
+__host__ __device__ inline int stage_pad(int N) { return (N + 1) & ~1; }
+
+// Floats of K3's stage scratch: the angle gate's v1s [N, 4] and each
+// warp's column list.
+__host__ inline int stage_floats(int N, int warps) {
+  return 4 * N + warps * stage_pad(N) / 2;
+}
+
+// Builds W[f]'s lists from the frame's positions, every entry bit for bit
+// as the reference computes it: a warp per row i, a lane per column j,
+// d = minimg(p_i - p_j). The reference's pair (i, j) holds minimg(p_j - p_i)
+// = -minimg(p_i - p_j) exactly in row j, so each row gets the bits the
+// reference computes for it; kind 4's dot for row i is
+// ((0 - v1_i.x dx) - v1_i.y dy) - v1_i.z dz with the per-donor terms v1 and
+// cos(theta) |v1| in the stage scratch [N, 4]. sqrtf is monotone, so
+// sqrtf(acc) <= cutbuf exactly when acc <= acc_cut, the largest float with
+// that property (found on the host): pairs out of range skip the square
+// root and the law.
 template <int WARPS>
 struct BuildW {
-  __device__ void operator()(const SweepArgs& a, int f, float* ws,
-                             const float* cur, int warp, int lane) const {
+  __device__ int operator()(const SweepArgs& a, int f, const Lists& L,
+                            const float* cur, float* v1s, int warp,
+                            int lane) const {
     const int n = a.N;
     const int kind = a.kind;
-    const int ld = n + 1;
     const float lx = a.box[0], ly = a.box[1], lz = a.box[2];
-    float* v1s = ws + (size_t)n * ld + (size_t)(6 + 3 * WARPS) * n;  // [N, 4]
+    const float rlx = 1.0f / lx, rly = 1.0f / ly, rlz = 1.0f / lz;
+    const float skip_cut = a.acc_cut * (1.0f + 0x1p-6f);
     if (kind == 4) {
       const float* pg = a.pgrp + (size_t)f * 3 * n;
       for (int i = warp * 32 + lane; i < n; i += WARPS * 32) {
@@ -72,77 +82,167 @@ struct BuildW {
       }
       __syncthreads();
     }
+    // each warp's list of the columns that pass the cheap range test
+    uint16_t* cand = (uint16_t*)(v1s + 4 * n) + (size_t)warp * stage_pad(n);
+    const unsigned below = (1u << lane) - 1u;
+    int bad = 0;
     for (int i = warp; i < n; i += WARPS) {
       const float xi = cur[3 * i], yi = cur[3 * i + 1], zi = cur[3 * i + 2];
-      if (lane == 0) ws[(size_t)i * ld + i] = 0.f;
-      for (int j = i + 1 + lane; j < n; j += 32) {
-        const float dx = minimg(xi - cur[3 * j], lx);
-        const float dy = minimg(yi - cur[3 * j + 1], ly);
-        const float dz = minimg(zi - cur[3 * j + 2], lz);
-        float acc = dx * dx + dy * dy;
-        acc = acc + dz * dz;
-        if (!(acc <= a.acc_cut)) {
-          ws[(size_t)i * ld + j] = 0.f;
-          ws[(size_t)j * ld + i] = 0.f;
-          continue;
+      // a pair certainly out of range skips the exact minimum image (three
+      // divisions): with the reciprocal lengths each component is the exact
+      // one or, where d / len lies within a few ulps of a half-integer, the
+      // other image, of the same length to within 4 len ulp(d / len); for
+      // separations below 2^10 box lengths the square sum then exceeds
+      // acc_cut * (1 + 2^-6) only if the exact one exceeds acc_cut. The
+      // columns that pass are gathered in ascending order, so the exact
+      // test runs on them alone, not on every 32nd column of the row.
+      int nc = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int j = base + lane;
+        bool c = false;
+        if (j < n && j != i) {
+          const float ex = xi - cur[3 * j], ey = yi - cur[3 * j + 1],
+                      ez = zi - cur[3 * j + 2];
+          const float fx = ex - lx * rintf(ex * rlx),
+                      fy = ey - ly * rintf(ey * rly),
+                      fz = ez - lz * rintf(ez * rlz);
+          c = fx * fx + fy * fy + fz * fz <= skip_cut;
         }
-        const float dist = sqrtf(acc);
-        bool in_ij = true, in_ji = true;
-        if (kind == 4) {
-          float dot_i = 0.f - v1s[4 * i] * dx;
-          dot_i = dot_i - v1s[4 * i + 1] * dy;
-          dot_i = dot_i - v1s[4 * i + 2] * dz;
-          float dot_j = v1s[4 * j] * dx + v1s[4 * j + 1] * dy;
-          dot_j = dot_j + v1s[4 * j + 2] * dz;
-          in_ij = dot_i <= v1s[4 * i + 3] * dist;
-          in_ji = dot_j <= v1s[4 * j + 3] * dist;
-        }
-        const float w = (in_ij || in_ji) ? apply_law(kind, dist, a.params) : 0.f;
-        ws[(size_t)i * ld + j] = in_ij ? w : 0.f;
-        ws[(size_t)j * ld + i] = in_ji ? w : 0.f;
+        const unsigned m = __ballot_sync(FULL_MASK, c);
+        if (c) cand[nc + __popc(m & below)] = (uint16_t)j;
+        nc += __popc(m);
       }
+      __syncwarp();
+      int cnt = 0;
+      for (int k0 = 0; k0 < nc; k0 += 32) {
+        const int k = k0 + lane;
+        const int j = k < nc ? cand[k] : 0;
+        float w = 0.f;
+        if (k < nc) {
+          const float dx = minimg(xi - cur[3 * j], lx);
+          const float dy = minimg(yi - cur[3 * j + 1], ly);
+          const float dz = minimg(zi - cur[3 * j + 2], lz);
+          float acc = dx * dx + dy * dy;
+          acc = acc + dz * dz;
+          if (acc <= a.acc_cut) {
+            const float dist = sqrtf(acc);
+            bool in = true;
+            if (kind == 4) {
+              float dot = 0.f - v1s[4 * i] * dx;
+              dot = dot - v1s[4 * i + 1] * dy;
+              dot = dot - v1s[4 * i + 2] * dz;
+              in = dot <= v1s[4 * i + 3] * dist;
+            }
+            if (in) w = apply_law(kind, dist, a.params);
+          }
+        }
+        bad |= list_push(L, i, j, w, cnt, lane);
+      }
+      if (lane == 0) L.len[i] = (uint16_t)cnt;
+      __syncwarp();  // the list is read before the next row rewrites it
     }
+    return bad;
   }
 };
 
 template <int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) kmc_sweep_kernel(SweepArgs a) {
+__global__ void __launch_bounds__(WARPS * 32, sweep_min_blocks(WARPS))
+    kmc_sweep_kernel(SweepArgs a) {
   sweep_block<WARPS>(a, BuildW<WARPS>());
 }
 
-template <int WARPS>
-static cudaError_t launch(const SweepArgs& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kmc_sweep_kernel<WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  int blocks = (a.R + WARPS - 1) / WARPS;
-  kmc_sweep_kernel<WARPS><<<blocks, WARPS * 32, smem, stream>>>(a);
-  return cudaGetLastError();
+static const void* kernel_for(int warps) {
+  switch (warps) {
+    case 2: return (const void*)kmc_sweep_kernel<2>;
+    case 4: return (const void*)kmc_sweep_kernel<4>;
+    case 8: return (const void*)kmc_sweep_kernel<8>;
+    case 16: return (const void*)kmc_sweep_kernel<16>;
+    default: return nullptr;
+  }
 }
 
-// Shared memory of one block: the event loop's with W staged, and v1s.
-static size_t smem_bytes(int N, int warps) {
-  return sweep_smem_bytes(N, warps, 1) + sizeof(float) * 4 * (size_t)N;
+// The sites j != i within range of site i (sqrtf of the squared minimum
+// image <= cutbuf, K3's exact test: `acc <= acc_cut`) of the frame's most
+// crowded site, over the frames [B, N, 3], into caps[0] and caps[1] (the
+// test is symmetric): a warp per site.
+__global__ void range_caps_kernel(const float* __restrict__ pos, int B, int N,
+                                  float lx, float ly, float lz, float acc_cut,
+                                  int* caps) {
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * (blockDim.x >> 5) +
+                      (threadIdx.x >> 5);
+  if (g >= (long long)B * N) return;
+  const float* p = pos + (g / N) * 3 * N;
+  const int i = (int)(g % N);
+  const float xi = p[3 * i], yi = p[3 * i + 1], zi = p[3 * i + 2];
+  int cnt = 0;
+  for (int j = lane; j < N; j += 32) {
+    const float dx = minimg(xi - p[3 * j], lx);
+    const float dy = minimg(yi - p[3 * j + 1], ly);
+    const float dz = minimg(zi - p[3 * j + 2], lz);
+    float acc = dx * dx + dy * dy;
+    acc = acc + dz * dz;
+    cnt += j != i && acc <= acc_cut;
+  }
+  cnt = __reduce_add_sync(FULL_MASK, cnt);
+  if (lane == 0) {
+    raise_caps(caps, 0, cnt);
+    raise_caps(caps, 1, cnt);
+  }
 }
 
-// Shared memory a launch at N sites and `warps` warps per block needs, and
-// the device's opt-in limit per block.
-extern "C" int cmdlmc_kmc_sweep_smem(int N, int warps, int device, int* need,
-                                     int* optin) {
-  *need = (int)smem_bytes(N, warps);
-  return (int)cudaDeviceGetAttribute(
-      optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+// K3's launch plan at N sites and `warps` warps per block (`sweep_plan`;
+// the stage scratch holds the angle gate's v1s [N, 4] and each warp's
+// candidate columns) and how many of its blocks one SM holds.
+extern "C" int cmdlmc_kmc_sweep_plan(int N, int warps, int device,
+                                     long long* smem, long long* list_budget,
+                                     int* blocks_per_sm) {
+  CmdlmcDeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  const void* k = kernel_for(warps);
+  if (!k) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0, budget = 0;
+  cudaError_t err = sweep_plan(k, N, warps, stage_floats(N, warps), device,
+                               &bytes, &budget);
+  if (err != cudaSuccess) return (int)err;
+  *smem = (long long)bytes;
+  *list_budget = (long long)budget;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k, warps * 32, bytes);
 }
 
+// Counts the frames' most crowded site into caps [2] (int32, on the
+// device) on `stream`, with no host wait.
+extern "C" int cmdlmc_kmc_sweep_caps(const void* pos, int B, int N,
+                                     float cutbuf, float lx, float ly,
+                                     float lz, void* caps, void* stream,
+                                     int device) {
+  CmdlmcDeviceGuard guard(device);
+  cudaError_t err = guard.err;
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = cudaMemsetAsync(caps, 0, 2 * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * N;
+  const int threads = 256;
+  const long long blocks = (rows + threads / 32 - 1) / (threads / 32);
+  range_caps_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+      (const float*)pos, B, N, lx, ly, lz, sqrt_cut(cutbuf), (int*)caps);
+  return (int)cudaGetLastError();
+}
+
+// One K3 launch: `caps` as counted by cmdlmc_kmc_sweep_caps; `lists` null,
+// or `slice` bytes of global scratch per block for lists that do not fit in
+// shared memory.
 extern "C" int cmdlmc_kmc_sweep(
     const void* pos, const void* pgrp, const void* prev_in, const void* s_in,
     void* prev_out, void* s_out, void* occ, void* lab, void* sites,
     void* tlast, void* db, void* u, void* evc, void* trunc, int R, int N,
     int P, int B, int tile, int tile_offset, int frame0, int max_events,
-    int kind, int warps, float dt, uint32_t seed, float cutbuf, float lx,
-    float ly, float lz, float p0, float p1, float p2, float p3, float p4,
-    float p5, void* stream, int device) {
+    int kind, const void* caps, void* lists, long long slice, int warps,
+    float dt, uint32_t seed,
+    float cutbuf, float lx, float ly, float lz, float p0, float p1, float p2,
+    float p3, float p4, float p5, void* stream, int device) {
   CmdlmcDeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
@@ -172,7 +272,10 @@ extern "C" int cmdlmc_kmc_sweep(
   a.frame0 = frame0;
   a.max_events = max_events;
   a.stale = 0;
-  a.w_in_smem = 1;
+  a.caps = (const int*)caps;
+  a.lists_global = (unsigned char*)lists;
+  a.slice = (size_t)slice;
+  a.extra = stage_floats(N, warps);
   a.kind = kind;
   a.dt = dt;
   a.cutbuf = cutbuf;
@@ -188,18 +291,13 @@ extern "C" int cmdlmc_kmc_sweep(
   a.params[5] = p5;
   a.acc_cut = sqrt_cut(cutbuf);
 
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
+  const void* k = kernel_for(warps);
+  if (!k) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  err = sweep_plan(k, N, warps, a.extra, device, &smem, &a.list_budget);
   if (err != cudaSuccess) return (int)err;
-  size_t smem = smem_bytes(N, warps);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (warps) {
-    case 2: return (int)launch<2>(a, smem, s);
-    case 4: return (int)launch<4>(a, smem, s);
-    case 8: return (int)launch<8>(a, smem, s);
-    case 16: return (int)launch<16>(a, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(k, dim3((R + warps - 1) / warps),
+                               dim3(warps * 32), args, smem,
+                               (cudaStream_t)stream);
 }

@@ -6,66 +6,133 @@
 // frame loop runs inside the kernel, so replica state never leaves the SM
 // between frames. The event loop itself is event_loop.cuh, shared with K3;
 // K1's part is where W[f] comes from: stage 1 built it in global memory, and
-// each frame the block copies it into shared memory with row stride N+1.
-// When W does not fit, the warps read it from global memory instead.
+// each frame the block reads it from L2, a warp per row and a lane per
+// column, and keeps only its nonzero entries as the frame's lists.
 //
-// Bound on the H100: the per-event rate reduction is N*N multiply-adds per
-// replica from shared memory (N=144: 20736 per replica per evaluation, about
-// 3.4 evaluations per replica-frame at the bench.py rates), so the kernel is
-// bound by operations: by shared-memory load throughput and by the serial
-// event chain of each warp. The W stream (N*N*4 bytes per block per frame)
-// comes from L2. Nothing here is tuned yet.
+// Where the time goes on the H100 (PERF.md, PR 7): a rate evaluation adds
+// only the vacant terms of the occupied rows (P (N - P) c / (N - 1) terms, c
+// the nonzeros per row: about 780 at the bench.py deployment, N=144, P=96,
+// c = 24 on average and 38 at most, where the dense sum took N*N = 20736),
+// and after an event only the rows it changes. What remains is each warp's
+// chain of dependent steps (the two races draw a hash, a logf and a divide
+// per candidate of positive rate), the lists' build per block and frame,
+// and the frame-start barrier, at which every warp of a block waits for
+// its slowest replica. A block is K1_WARPS = 32 replicas (one per warp):
+// each block builds every frame's lists once for all its replicas, and on
+// the H100 32 warps ran faster than 8 or 16 (PERF.md, PR 7). At 56
+// registers a thread one block fills an SM's registers, so the block takes
+// the whole opt-in shared memory; the lists (about 64 KB at the bench
+// deployment) live there where they fit, in a global slice per block
+// otherwise. The longest row and column are counted on the device by
+// `list_caps_kernel` before the sweep, so the host never waits for them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
 #include "event_loop.cuh"
 
-#define WARPS 16  // replicas (warps) per thread block
+// Replicas (warps) per thread block.
+#define K1_WARPS 32
 
-// Copies W[f] from global memory into the block's shared memory.
-struct CopyW {
-  __device__ void operator()(const SweepArgs& a, int f, float* ws,
-                             const float* /*cur*/, int warp, int lane) const {
-    if (!a.w_in_smem) return;
+// Compacts W[f] from global memory into the block's row lists.
+struct StreamW {
+  __device__ int operator()(const SweepArgs& a, int f, const Lists& L,
+                            const float* /*cur*/, float* /*extra*/, int warp,
+                            int lane) const {
     const int n = a.N;
     const float* wg = a.w + (size_t)f * n * n;
-    for (int i = warp; i < n; i += WARPS)
-      for (int j = lane; j < n; j += 32)
-        ws[(size_t)i * (n + 1) + j] = wg[(size_t)i * n + j];
+    int bad = 0;
+    for (int i = warp; i < n; i += K1_WARPS) {
+      const float* wi = wg + (size_t)i * n;
+      bad |= push_row(L, i, n, lane, [&](int j) { return wi[j]; });
+    }
+    return bad;
   }
 };
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(K1_WARPS * 32, sweep_min_blocks(K1_WARPS))
     kmc_sweep_streamed_kernel(SweepArgs a) {
-  sweep_block<WARPS>(a, CopyW());
+  sweep_block<K1_WARPS>(a, StreamW());
 }
 
-// Dynamic shared memory of one thread block at N sites, and whether W[f]
-// fits in it under the device's opt-in limit (else W is read from global).
-static cudaError_t smem_plan(int N, int device, int* w_in_smem, size_t* smem) {
-  int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  *w_in_smem = sweep_smem_bytes(N, WARPS, 1) <= (size_t)optin ? 1 : 0;
-  *smem = sweep_smem_bytes(N, WARPS, *w_in_smem);
-  return *smem > (size_t)optin ? cudaErrorInvalidValue : cudaSuccess;
+// The nonzero entries (NaN included) of the longest row and of the longest
+// column of W [B, N, N] into caps[0] and caps[1]: a warp per row, a thread
+// per column.
+__global__ void list_caps_kernel(const float* __restrict__ w, int B, int N,
+                                 int* caps) {
+  const int lane = threadIdx.x & 31;
+  const long long rows = (long long)B * N;
+  const long long g = (long long)blockIdx.x * (blockDim.x >> 5) +
+                      (threadIdx.x >> 5);
+  if (g < rows) {
+    const float* wi = w + g * N;
+    int cnt = 0;
+    for (int j = lane; j < N; j += 32) cnt += wi[j] != 0.f;
+    cnt = __reduce_add_sync(FULL_MASK, cnt);
+    if (lane == 0) raise_caps(caps, 0, cnt);
+  }
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < rows) {
+    const long long f = t / N, j = t % N;
+    const float* wf = w + f * N * N;
+    int cnt = 0;
+    for (int i = 0; i < N; ++i) cnt += wf[(size_t)i * N + j] != 0.f;
+    raise_caps(caps, 1, cnt);
+  }
 }
 
-// Which W path a launch at N sites takes on `device`: 1 shared, 0 global.
-extern "C" int cmdlmc_kmc_sweep_w_in_smem(int N, int device, int* w_in_smem) {
-  size_t smem = 0;
-  return (int)smem_plan(N, device, w_in_smem, &smem);
+// Bytes of one block's row and column lists of `cap` and `ccap` entries
+// (K1 and K3 alike): the size of a global slice.
+extern "C" long long cmdlmc_sweep_list_bytes(int N, int cap, int ccap) {
+  return (long long)list_bytes(N, cap, ccap);
 }
 
+// K1's launch plan at N sites (`sweep_plan`) and how many of its blocks one
+// SM holds.
+extern "C" int cmdlmc_kmc_sweep_streamed_plan(int N, int device, long long* smem,
+                                              long long* list_budget,
+                                              int* blocks_per_sm) {
+  CmdlmcDeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  const void* k = (const void*)kmc_sweep_streamed_kernel;
+  size_t bytes = 0, budget = 0;
+  cudaError_t err = sweep_plan(k, N, K1_WARPS, 0, device, &bytes, &budget);
+  if (err != cudaSuccess) return (int)err;
+  *smem = (long long)bytes;
+  *list_budget = (long long)budget;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k, K1_WARPS * 32, bytes);
+}
+
+// Counts W's longest row and column into caps [2] (int32, on the device) on
+// `stream`, with no host wait.
+extern "C" int cmdlmc_kmc_sweep_streamed_caps(const void* w, int B, int N,
+                                              void* caps, void* stream,
+                                              int device) {
+  CmdlmcDeviceGuard guard(device);
+  cudaError_t err = guard.err;
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = cudaMemsetAsync(caps, 0, 2 * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * N;
+  const int threads = 256;
+  const long long blocks = (rows + threads / 32 - 1) / (threads / 32);
+  list_caps_kernel<<<(unsigned)blocks, threads, 0, s>>>((const float*)w, B, N,
+                                                        (int*)caps);
+  return (int)cudaGetLastError();
+}
+
+// One K1 launch: `caps` as counted by cmdlmc_kmc_sweep_streamed_caps;
+// `lists` null, or `slice` bytes of global scratch per block for lists that
+// do not fit in shared memory.
 extern "C" int cmdlmc_kmc_sweep_streamed(
     const void* w, const void* pos, const void* prev_in, const void* s_in,
     void* prev_out, void* s_out, void* occ, void* lab, void* sites,
     void* tlast, void* db, void* u, void* evc, void* trunc, int R, int N,
     int P, int B, int tile, int tile_offset, int frame0, int max_events,
-    int stale, float dt, uint32_t seed, float lx, float ly, float lz,
-    void* stream, int device) {
+    int stale, const void* caps, void* lists, long long slice, float dt,
+    uint32_t seed, float lx, float ly, float lz, void* stream, int device) {
   CmdlmcDeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
@@ -84,6 +151,9 @@ extern "C" int cmdlmc_kmc_sweep_streamed(
   a.u = (float*)u;
   a.evc = (int*)evc;
   a.trunc = (int*)trunc;
+  a.caps = (const int*)caps;
+  a.lists_global = (unsigned char*)lists;
+  a.slice = (size_t)slice;
   a.R = R;
   a.N = N;
   a.P = P;
@@ -99,14 +169,12 @@ extern "C" int cmdlmc_kmc_sweep_streamed(
   a.box[1] = ly;
   a.box[2] = lz;
 
+  const void* k = (const void*)kmc_sweep_streamed_kernel;
   size_t smem = 0;
-  err = smem_plan(N, device, &a.w_in_smem, &smem);
+  err = sweep_plan(k, N, K1_WARPS, 0, device, &smem, &a.list_budget);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kmc_sweep_streamed_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = (R + WARPS - 1) / WARPS;
-  kmc_sweep_streamed_kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(k, dim3((R + K1_WARPS - 1) / K1_WARPS),
+                               dim3(K1_WARPS * 32), args, smem,
+                               (cudaStream_t)stream);
 }

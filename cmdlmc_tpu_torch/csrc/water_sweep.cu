@@ -29,7 +29,8 @@
 //     (salt 13);
 //   * at frame end the unused budget leaves u, a replica that fired on every
 //     iteration counts one truncated frame, and the per-frame counters move
-//     (fsj += 1, wait = max(wait - 1, 0)).
+//     (fsj += 1, wait = max(wait - 1, 0)); replica 0 writes its site to the
+//     frame's slot of the site trace, the site the CLI prints for that frame.
 // B4's any_live skip over a tile is a per-thread loop exit: a done replica's
 // iteration changes nothing. Its one-hot matmul gathers are index loads. The
 // logical RNG tile `tile` keys the draws and is not the CUDA block.
@@ -77,6 +78,7 @@ struct WaterArgs {
   float* corr;   // [R, 3]
   float* abase;  // [R, 3]
   int* trunc;
+  int* site_trace;  // [B] replica 0's site after each frame
   int R, N, B, K, tile, tile_offset, frame0, max_events, kind, relax, waiting,
       keep_last, check_old;
   float dt, d_oh, lx, ly, lz;
@@ -227,6 +229,7 @@ __global__ void water_sweep_kernel(WaterArgs a) {
     u = u - ((rates[0] + rates[1]) + rates[2]) * (a.dt - phase);
     fsj += 1;
     wait = wait > 1 ? wait - 1 : 0;
+    if (r == 0) a.site_trace[b] = site;
   }
 
   if (blockIdx.x == 0) {
@@ -254,7 +257,7 @@ extern "C" int cmdlmc_water_sweep(
     const void* pos, const void* topd, const void* topi, const void* resc,
     const void* prev, const void* s_in, void* s_out, void* site, void* last,
     void* fsj, void* wait, void* jumps, void* evc, void* u, void* corr,
-    void* abase, void* trunc, int R, int N, int B, int K, int tile,
+    void* abase, void* trunc, void* site_trace, int R, int N, int B, int K, int tile,
     int tile_offset, int frame0, int max_events, int kind, int relax,
     int waiting, int keep_last, int check_old, int threads, float dt,
     float d_oh, float lx, float ly, float lz, uint32_t seed, const float* p,
@@ -282,6 +285,7 @@ extern "C" int cmdlmc_water_sweep(
   a.corr = (float*)corr;
   a.abase = (float*)abase;
   a.trunc = (int*)trunc;
+  a.site_trace = (int*)site_trace;
   a.R = R;
   a.N = N;
   a.B = B;

@@ -45,6 +45,12 @@ logger = logging.getLogger(__name__)
 # reference does at every tile count. On the H100 the two routes tie at 8
 # tiles and stage 1 + K1 is faster from 16 tiles on (PERF.md).
 INKERNEL_MAX_TILES = 16
+# ... and at most this many sites. A frozen route boundary: it is where
+# K3's former dense W[N, N+1] stopped fitting in an H100 block's shared
+# memory, and nothing in the current K3 sets it (its lists go to global
+# memory where they do not fit); it stays so that no configuration changes
+# route until a measured crossover with stage 1 + K1 at large N replaces it.
+INKERNEL_MAX_SITES = 224
 
 
 def fused_unsupported_reason(model, cell: Cell) -> str | None:
@@ -72,8 +78,8 @@ def fused_unsupported_reason(model, cell: Cell) -> str | None:
     return None
 
 
-def inkernel_reason(model, cell: Cell, n_sites: int, stale_rates: bool,
-                    device: torch.device) -> str | None:
+def inkernel_reason(model, cell: Cell, n_sites: int,
+                    stale_rates: bool) -> str | None:
     """None if K3 can run this configuration, else why not."""
     kind = ks.law_kind(model.law)
     if not cell.orthorhombic:
@@ -84,18 +90,19 @@ def inkernel_reason(model, cell: Cell, n_sites: int, stale_rates: bool,
         return "AngleTopology with a distance-only law takes the streamed route"
     if stale_rates:
         return "stale rates live in the streamed route"
-    if not ks.fits_in_shared_memory(n_sites, device):
-        return f"W[{n_sites}, {n_sites + 1}] does not fit in a block's shared memory"
+    if n_sites > INKERNEL_MAX_SITES:
+        return (f"{n_sites} sites exceed the in-kernel route's "
+                f"{INKERNEL_MAX_SITES}")
     return None
 
 
 def inkernel_route(model, cell: Cell, n_replicas: int, n_sites: int,
-                   tile: int, stale_rates: bool, device: torch.device) -> bool:
+                   tile: int, stale_rates: bool) -> bool:
     """The route rule: K3 when it can run the configuration
     (:func:`inkernel_reason`) and there are fewer than INKERNEL_MAX_TILES
     RNG tiles; else stage 1 + K1, which gives the same result."""
     return (n_replicas < INKERNEL_MAX_TILES * tile
-            and inkernel_reason(model, cell, n_sites, stale_rates, device) is None)
+            and inkernel_reason(model, cell, n_sites, stale_rates) is None)
 
 
 def pick_tile(n_replicas: int, target: int = 128, n_sites: int = 0) -> int:
@@ -186,10 +193,9 @@ def run_block_fused(
     positions = frames_positions.to(torch.float32)
     extras = extras_positions.to(torch.float32) if angle else None
     if streamed is None:
-        streamed = not inkernel_route(model, cell, R, N, tile, stale_rates,
-                                      rep.occ.device)
+        streamed = not inkernel_route(model, cell, R, N, tile, stale_rates)
     elif not streamed:
-        reason = inkernel_reason(model, cell, N, stale_rates, rep.occ.device)
+        reason = inkernel_reason(model, cell, N, stale_rates)
         if reason:
             raise ValueError(reason)
     if not streamed:

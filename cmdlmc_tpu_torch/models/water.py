@@ -109,12 +109,19 @@ def init_water_states(generator: torch.Generator, n_replicas: int, n_sites: int,
     )
 
 
-def water_unsupported_reason(model: WaterModel) -> str | None:
+def water_unsupported_reason(model: WaterModel,
+                             n_sites: int | None = None) -> str | None:
     """None if the fused kernel runs this model, else why not (the JAX
     package's ``water_fused_supported`` rules: an orthorhombic cell, a law
     the kernel knows, n_atoms 3 or 4, a linear, ramp or interpolated
-    transform with at most MAX_INTERP_POINTS points)."""
+    transform with at most MAX_INTERP_POINTS points; and, given the site
+    count, K7's limit: its prefix sum takes 12 bytes of shared memory per
+    site)."""
     scan = "the scan model is not ported yet (ROADMAP A12)"
+    if n_sites is not None and n_sites > ws.MAX_SITES:
+        return (f"{n_sites} sites exceed the water kernel's {ws.MAX_SITES}: its "
+                f"site prefix sum ({12 * n_sites} bytes) does not fit in a "
+                f"block's shared memory; {scan}")
     if not model.cell.orthorhombic:
         return f"the water kernel needs an orthorhombic cell; {scan}"
     if ks.law_kind(model.law) is None:
@@ -163,20 +170,22 @@ def run_water_block_fused(model: WaterModel, states: WaterState,
                           tile: int | None = None, tile_offset: int = 0):
     """Advance the water ensemble across a block of frames [B, N, 3].
 
-    Returns (states', site_disp', prev_pos', trunc): trunc is the
-    per-replica count of frames whose event budget ran out. The snapshot
+    Returns (states', site_disp', prev_pos', trunc, site_trace): trunc is
+    the per-replica count of frames whose event budget ran out, site_trace
+    [B] replica 0's site after each frame (the site the CLI prints for the
+    frame). The snapshot
     and displacement are converted to and from the kernel's rebased form at
     the block's ends (displacement = A + S[site] + corr, snapshot =
     prev[site] + corr), so the WaterState contract is the JAX package's.
     The tables come from K5 and the loop from K7 for tensors on the card,
     from their plain versions on the CPU. ``tile`` is the logical RNG tile
     (None: the JAX package's TPU rule, ``pick_tile(R, 256, N)``)."""
-    reason = water_unsupported_reason(model)
-    if reason:
-        raise NotImplementedError(reason)
     R = states.site.shape[0]
     positions = positions_block.to(torch.float32)
     N = positions.shape[1]
+    reason = water_unsupported_reason(model, N)
+    if reason:
+        raise NotImplementedError(reason)
     if tile is None:
         tile = pick_tile(R, target=256, n_sites=N)
     tkind, tparams, tx, ty = _transform_spec(model)
@@ -209,4 +218,4 @@ def run_water_block_fused(model: WaterModel, states: WaterState,
         snapshot=prev_out[site.long()] + corr,
         displacement=out["disp_base"] + s_out[site.long()] + corr,
     )
-    return new_states, s_out, prev_out, out["trunc"]
+    return new_states, s_out, prev_out, out["trunc"], out["site_trace"]

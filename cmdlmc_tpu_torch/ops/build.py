@@ -33,16 +33,23 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "cmdlmc_pairwise": [_P, _I, _I, _F, _F, _F, _P, _P, _I],
     "cmdlmc_kmc_sweep_streamed": (
-        [_P] * 14 + [_I] * 9 + [_F, ctypes.c_uint32, _F, _F, _F, _P, _I]
+        [_P] * 14 + [_I] * 9 + [_P, _P, _LL]
+        + [_F, ctypes.c_uint32, _F, _F, _F, _P, _I]
     ),
-    "cmdlmc_kmc_sweep_w_in_smem": [_I, _I, ctypes.POINTER(_I)],
+    "cmdlmc_kmc_sweep_streamed_plan": [_I, _I] + [ctypes.POINTER(_LL)] * 2
+    + [ctypes.POINTER(_I)],
+    "cmdlmc_kmc_sweep_streamed_caps": [_P, _I, _I, _P, _P, _I],
     "cmdlmc_kmc_sweep": (
-        [_P] * 14 + [_I] * 10 + [_F, ctypes.c_uint32] + [_F] * 10 + [_P, _I]
+        [_P] * 14 + [_I] * 9 + [_P, _P, _LL, _I, _F, ctypes.c_uint32]
+        + [_F] * 10 + [_P, _I]
     ),
-    "cmdlmc_kmc_sweep_smem": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "cmdlmc_kmc_sweep_plan": [_I] * 3 + [ctypes.POINTER(_LL)] * 2
+    + [ctypes.POINTER(_I)],
+    "cmdlmc_kmc_sweep_caps": [_P, _I, _I] + [_F] * 4 + [_P, _P, _I],
     "cmdlmc_rng_fill": [_P, _I, _I, _P, _P, _P, _I],
     "cmdlmc_knn_tables": [_P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I],
     "cmdlmc_knn_sparse": [_P, _I, _I, _I] + [_F] * 4 + [_P, _P] + [_I] * 5
@@ -53,7 +60,7 @@ _SIGNATURES = {
         + [ctypes.POINTER(_F)] * 2 + [_P, _I]
     ),
     "cmdlmc_water_sweep": (
-        [_P] * 17 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
+        [_P] * 18 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
     ),
 }
 
@@ -135,6 +142,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.cmdlmc_sweep_list_bytes.argtypes = [_I] * 3
+    lib.cmdlmc_sweep_list_bytes.restype = _LL
     lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
     lib.cmdlmc_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), built=built,

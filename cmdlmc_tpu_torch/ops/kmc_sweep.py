@@ -4,9 +4,13 @@ Port of ``cmdlmc_tpu/ops/kmc_sweep.py`` for orthorhombic cells and the law
 kinds 0 Fermi, 1 Constant, 2 Exponential, 3 ActivationEnergy and
 4 FermiAngle (the P-O-O angle gate over AngleTopology). Each frame's rate
 matrix W is built from the positions inside the kernel (no W in device
-memory), then every replica runs the same event loop as kernel K1
-(``csrc/event_loop.cuh``): the CUDA kernel ``csrc/kmc_sweep.cu`` for tensors
-on the card, :func:`kmc_sweep_reference` for tensors on the CPU. Jump
+memory) as row and column lists of its nonzero entries, then every replica
+runs the same event loop as kernel K1 (``csrc/event_loop.cuh``): the CUDA
+kernel ``csrc/kmc_sweep.cu`` for tensors on the card,
+:func:`kmc_sweep_reference` for tensors on the CPU. The lists are sized by
+the most sites in range of any site over the block, which a small kernel
+counts on the device before the sweep with K3's own range test
+(:func:`range_caps`), so the host does not wait for the device. Jump
 statistics and the jump matrix wait for ROADMAP A11.
 
 Draws are keyed as in K1 (``ops/rng.py``), so for the same W the two routes
@@ -18,6 +22,7 @@ the arccos: a pair within an ulp of theta can fall on either side.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,10 +42,10 @@ _LAW_KIND = {
 }
 
 # Replicas (warps) per thread block of K3: the launch shape, independent of
-# the logical RNG tile (PERF.md: the fastest of 2, 4, 8 and 16 at R=1024).
-WARPS_PER_BLOCK = 8
-# Opt-in shared memory per block of an H100 (and H200): the route rule's
-# limit for tensors on the CPU, so a CPU run takes the route the card would.
+# the logical RNG tile (PERF.md, PR 7: the fastest of 2, 4, 8 and 16 at
+# R=1024, B=100 on the H100).
+WARPS_PER_BLOCK = 16
+# Opt-in shared memory per block of an H100 (and H200).
 SMEM_OPTIN_H100 = 232448
 
 
@@ -105,12 +110,7 @@ def inkernel_tables(positions, law_params, box, pgrp_positions=None, *,
     def minimg(d):
         return d - box_t * torch.round(d / box_t)
 
-    dd = minimg(positions[:, :, None, :] - positions[:, None, :, :])
-    sq = dd * dd
-    dist = sqrt32((sq[..., 0] + sq[..., 1]) + sq[..., 2])
-    n = positions.shape[1]
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    valid = (dist <= torch.tensor(cutbuf, dtype=f32, device=dev)) & ~eye
+    dd, dist, valid = _in_range(positions, box, cutbuf)
     if kind == KIND_FERMI_ANGLE:
         v1 = minimg(pgrp_positions - positions)  # [B, N, 3]
         prod = v1[:, :, None, :] * dd
@@ -119,6 +119,46 @@ def inkernel_tables(positions, law_params, box, pgrp_positions=None, *,
             + v1[..., 2] * v1[..., 2]
         valid = valid & (dot <= (p[3] * sqrt32(n1))[:, :, None] * dist)
     return torch.where(valid, _apply_law(kind, dist, p), 0.0)
+
+
+def _in_range(positions, box, cutbuf: float):
+    """d = minimg(pos_i - pos_j) [B, N, N, 3], dist = sqrt((dx^2 + dy^2) +
+    dz^2) and the pairs in range (dist <= cutbuf, i != j), as K3 computes
+    them."""
+    dev = positions.device
+    f32 = torch.float32
+    box_t = torch.tensor([float(x) for x in box], dtype=f32, device=dev)
+    dd = positions[:, :, None, :] - positions[:, None, :, :]
+    dd = dd - box_t * torch.round(dd / box_t)
+    sq = dd * dd
+    dist = sqrt32((sq[..., 0] + sq[..., 1]) + sq[..., 2])
+    n = positions.shape[1]
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    valid = (dist <= torch.tensor(cutbuf, dtype=f32, device=dev)) & ~eye
+    return dd, dist, valid
+
+
+def range_caps(positions, box, cutbuf: float) -> torch.Tensor:
+    """The most sites in range of any site over the frames [B, N, 3], as
+    int32 [2] (rows, columns: the distances are symmetric) on the positions'
+    device: the list lengths K3 is sized for (a pair in range can still have
+    a zero rate). On the card a small kernel counts them with K3's
+    arithmetic and no host wait; on the CPU the plain version does."""
+    B, N, _ = positions.shape
+    dev = positions.device
+    if B == 0:
+        return torch.zeros(2, dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        cap = _in_range(positions, box, cutbuf)[2].sum(dim=-1).amax()
+        return torch.stack([cap, cap]).to(torch.int32)
+    pos = positions.contiguous()
+    caps = torch.empty(2, dtype=torch.int32, device=dev)
+    lx, ly, lz = (float(x) for x in box)
+    build.check(build.library().cmdlmc_kmc_sweep_caps(
+        pos.data_ptr(), B, N, float(np.float32(cutbuf)), lx, ly, lz,
+        caps.data_ptr(), build.stream_of(pos), dev.index or 0),
+        "kmc_sweep range count")
+    return caps
 
 
 def kmc_sweep_reference(
@@ -140,28 +180,33 @@ def kmc_sweep_reference(
     )
 
 
-def smem_bytes(n_sites: int, warps: int = WARPS_PER_BLOCK) -> int:
-    """Shared memory one K3 block needs: W[N, N+1], the prefix sum and the
-    positions [2, N, 3], each warp's occ / labels / rows [3, N], and the
-    angle gate's per-donor terms [N, 4] (``csrc/kmc_sweep.cu::smem_bytes``)."""
-    n = n_sites
-    return 4 * (n * (n + 1) + 6 * n + warps * 3 * n + 4 * n)
+@functools.lru_cache(maxsize=None)
+def _plan(n_sites: int, warps: int, device_index: int) -> dict:
+    smem, budget = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    per_sm = ctypes.c_int(0)
+    code = build.library().cmdlmc_kmc_sweep_plan(
+        int(n_sites), int(warps), device_index, ctypes.byref(smem),
+        ctypes.byref(budget), ctypes.byref(per_sm))
+    if code:
+        raise ValueError(
+            f"kmc_sweep: no launch at N={n_sites} with {warps} warps per "
+            "block: the block does not fit in shared memory or the warp count "
+            "is not 2, 4, 8 or 16")
+    return {"smem": smem.value, "list_budget": budget.value,
+            "blocks_per_sm": per_sm.value, "warps": int(warps)}
 
 
-def fits_in_shared_memory(n_sites: int, device: torch.device,
-                          warps: int = WARPS_PER_BLOCK) -> bool:
-    """Whether a K3 block at ``n_sites`` fits in the device's opt-in shared
-    memory (the H100's limit for the CPU)."""
-    if device.type != "cuda":
-        return smem_bytes(n_sites, warps) <= SMEM_OPTIN_H100
-    need, optin = ctypes.c_int(0), ctypes.c_int(0)
-    build.check(
-        build.library().cmdlmc_kmc_sweep_smem(
-            int(n_sites), int(warps), device.index or 0, ctypes.byref(need),
-            ctypes.byref(optin)),
-        "kmc_sweep shared-memory plan",
-    )
-    return need.value <= optin.value
+def launch_plan(n_sites: int, caps, device: torch.device,
+                warps: int = WARPS_PER_BLOCK) -> dict:
+    """K3's launch plan at ``n_sites`` and ``warps`` warps per block: a
+    block's dynamic shared memory in bytes (as much as its occupancy leaves
+    it) and of that the bytes left for lists, the blocks one SM holds, and
+    whether lists of ``caps`` entries (:func:`range_caps`) live in shared
+    memory (else in global scratch). Raises ValueError where no block
+    fits."""
+    plan = dict(_plan(int(n_sites), int(warps), device.index or 0))
+    plan["lists_in_smem"] = kss.list_bytes(n_sites, *caps) <= plan["list_budget"]
+    return plan
 
 
 def kmc_sweep(
@@ -223,11 +268,6 @@ def kmc_sweep(
                 f"kmc_sweep: {name} must be {dtype} {tuple(shape)} on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    if not fits_in_shared_memory(N, dev, warps):
-        raise ValueError(
-            f"kmc_sweep: W[{N}, {N + 1}] does not fit in a block's shared "
-            "memory; take the streamed route"
-        )
     params = [float(x) for x in torch.as_tensor(law_params, dtype=f32).tolist()]
     if len(params) != 6:
         raise ValueError("law_params must hold 6 values")
@@ -245,6 +285,10 @@ def kmc_sweep(
         trunc.zero_()
         return kss._outputs(*state, s_in.clone(), prev_in.clone(), trunc)
     lx, ly, lz = (float(x) for x in box)
+    plan = _plan(N, int(warps), dev.index or 0)
+    caps = range_caps(pos, box, cutbuf)
+    lists, slice_ = kss.list_scratch(N, -(-R // int(warps)),
+                                     plan["list_budget"], caps)
     lib = build.library()
     kmc_sweep.launches += 1
     build.check(
@@ -253,8 +297,10 @@ def kmc_sweep(
             prev_in.data_ptr(), s_in.data_ptr(), prev_out.data_ptr(),
             s_out.data_ptr(), *(t.data_ptr() for t in state), trunc.data_ptr(),
             R, N, P, B, int(tile), int(tile_offset), int(frame0),
-            int(max_events), int(kind), int(warps), float(np.float32(dt)),
-            int(seed) & 0xFFFFFFFF, float(np.float32(cutbuf)), lx, ly, lz,
+            int(max_events), int(kind), caps.data_ptr(),
+            None if lists is None else lists.data_ptr(), slice_, int(warps),
+            float(np.float32(dt)), int(seed) & 0xFFFFFFFF,
+            float(np.float32(cutbuf)), lx, ly, lz,
             *params, build.stream_of(pos), dev.index or 0,
         ),
         "kmc_sweep kernel",

@@ -7,8 +7,11 @@ matrices W [B, N, N] with the model's ``shared`` (``PairRates`` or
 ``AnglePairRates``, whose W is asymmetric); stage 2 advances every
 replica through those frames: the CUDA kernel ``csrc/kmc_sweep_streamed.cu``
 for tensors on the card, :func:`kmc_sweep_streamed_reference` for tensors on
-the CPU. Jump statistics, the jump matrix and triclinic cells wait for
-ROADMAP A11.
+the CPU. The kernel keeps each frame's W as row and column lists of its
+nonzero entries, sized by the longest row and column of the block, which a
+small kernel counts on the device before the sweep (:func:`list_caps`), so
+the host does not wait for the device. Jump statistics, the jump matrix and
+triclinic cells wait for ROADMAP A11.
 
 Draws are keyed by (seed, global tile, absolute frame, event, salt) with the
 counter ``replica_in_tile * n + slot`` (``ops/rng.py``), so results do not
@@ -19,12 +22,22 @@ of the JAX package) is independent of the CUDA launch shape.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cmdlmc_tpu_torch.ops import build, rng
+
+# Replicas (warps) per thread block of K1 (csrc/kmc_sweep_streamed.cu::
+# K1_WARPS): the launch shape, independent of the logical RNG tile.
+WARPS_PER_BLOCK = 32
+# Bytes of global scratch a launch may take for row and column lists of
+# unknown length (every row whole) where they may not fit in shared memory;
+# past it the host reads the counted lengths (one device sync) and sizes the
+# scratch to them.
+LIST_SCRATCH_BUDGET = 1 << 30
 
 
 def dense_tables(model, positions_block: torch.Tensor,
@@ -145,6 +158,52 @@ def _check(name, t, dtype, shape, device):
         )
 
 
+def list_caps(w_block: torch.Tensor) -> torch.Tensor:
+    """The most nonzero entries (NaN included) of any row and of any column
+    of W [B, N, N], as int32 [2] on W's device: the list lengths K1 is sized
+    for. On the card a small kernel counts them without a host wait."""
+    B, N = w_block.shape[0], w_block.shape[-1]
+    if B == 0:
+        return torch.zeros(2, dtype=torch.int32, device=w_block.device)
+    if w_block.device.type == "cpu":
+        nz = w_block != 0
+        return torch.stack([nz.sum(dim=-1).amax(),
+                            nz.sum(dim=-2).amax()]).to(torch.int32)
+    w = w_block.contiguous()
+    caps = torch.empty(2, dtype=torch.int32, device=w.device)
+    build.check(build.library().cmdlmc_kmc_sweep_streamed_caps(
+        w.data_ptr(), B, N, caps.data_ptr(), build.stream_of(w),
+        w.device.index or 0), "kmc_sweep_streamed list count")
+    return caps
+
+
+def list_bytes(n_sites: int, cap: int, ccap: int) -> int:
+    """Bytes of one block's row and column lists of ``cap`` and ``ccap``
+    entries (K1 and K3 alike)."""
+    return int(build.library().cmdlmc_sweep_list_bytes(
+        int(n_sites), int(cap), int(ccap)))
+
+
+def list_scratch(n_sites: int, blocks: int, list_budget: int,
+                 caps: torch.Tensor) -> tuple[torch.Tensor | None, int]:
+    """Global scratch for one launch's lists and the bytes of each block's
+    slice: none where even whole rows fit in the block's ``list_budget``
+    bytes of shared memory; else whole-row slices while they fit in
+    LIST_SCRATCH_BUDGET, and past it slices of the counted ``caps`` (the
+    one case that waits for the device)."""
+    slice_ = list_bytes(n_sites, n_sites, n_sites)
+    if slice_ <= list_budget:
+        return None, 0
+    if blocks * slice_ > LIST_SCRATCH_BUDGET:
+        if caps.is_cuda:
+            torch.cuda.current_stream(caps.device).synchronize()
+        slice_ = list_bytes(n_sites, *caps.tolist())
+        if slice_ <= list_budget:
+            return None, 0
+    return (torch.empty(blocks * slice_, dtype=torch.uint8, device=caps.device),
+            slice_)
+
+
 def kmc_sweep_streamed(
     w_block, positions, prev_pos, site_disp, occ, labels, sites, tlast,
     disp_base, u_rem, ev_count, frame0: int, box, tile_offset: int = 0, *,
@@ -200,6 +259,10 @@ def kmc_sweep_streamed(
         trunc.zero_()
         return _outputs(*state, s_in.clone(), prev_in.clone(), trunc)
     lx, ly, lz = (float(x) for x in box)
+    caps = list_caps(w)
+    plan = _plan(N, dev.index or 0)
+    lists, slice_ = list_scratch(N, -(-R // WARPS_PER_BLOCK),
+                                 plan["list_budget"], caps)
     lib = build.library()
     kmc_sweep_streamed.launches += 1
     build.check(
@@ -208,9 +271,10 @@ def kmc_sweep_streamed(
             prev_out.data_ptr(), s_out.data_ptr(),
             *(t.data_ptr() for t in state), trunc.data_ptr(),
             R, N, P, B, int(tile), int(tile_offset), int(frame0),
-            int(max_events), int(bool(stale)), float(np.float32(dt)),
-            int(seed) & 0xFFFFFFFF, lx, ly, lz, build.stream_of(w),
-            dev.index or 0,
+            int(max_events), int(bool(stale)), caps.data_ptr(),
+            None if lists is None else lists.data_ptr(), slice_,
+            float(np.float32(dt)), int(seed) & 0xFFFFFFFF, lx, ly, lz,
+            build.stream_of(w), dev.index or 0,
         ),
         "kmc_sweep_streamed kernel",
     )
@@ -220,13 +284,27 @@ def kmc_sweep_streamed(
 kmc_sweep_streamed.launches = 0
 
 
-def w_in_shared_memory(n_sites: int, device: torch.device) -> bool:
-    """Whether K1 stages W[f] in shared memory at ``n_sites`` on ``device``
-    (True) or reads it from global memory (False): the kernel's own plan."""
-    flag = ctypes.c_int(-1)
-    build.check(
-        build.library().cmdlmc_kmc_sweep_w_in_smem(
-            int(n_sites), device.index or 0, ctypes.byref(flag)),
-        "kmc_sweep_streamed shared-memory plan",
-    )
-    return bool(flag.value)
+@functools.lru_cache(maxsize=None)
+def _plan(n_sites: int, device_index: int) -> dict:
+    smem, budget = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    per_sm = ctypes.c_int(0)
+    code = build.library().cmdlmc_kmc_sweep_streamed_plan(
+        int(n_sites), device_index, ctypes.byref(smem), ctypes.byref(budget),
+        ctypes.byref(per_sm))
+    if code:
+        raise ValueError(f"kmc_sweep_streamed: no launch at N={n_sites}: the "
+                         "block does not fit in shared memory")
+    return {"smem": smem.value, "list_budget": budget.value,
+            "blocks_per_sm": per_sm.value, "warps": WARPS_PER_BLOCK}
+
+
+def launch_plan(n_sites: int, caps, device: torch.device) -> dict:
+    """K1's launch plan at ``n_sites``: a block's dynamic shared memory in
+    bytes (as much as its occupancy leaves it) and of that the bytes left
+    for lists, the blocks one SM holds, the warps per block, and whether
+    lists of ``caps`` (longest row, longest column; :func:`list_caps`) live
+    in shared memory (else in global scratch). Raises ValueError where no
+    block fits."""
+    plan = dict(_plan(int(n_sites), device.index or 0))
+    plan["lists_in_smem"] = list_bytes(n_sites, *caps) <= plan["list_budget"]
+    return plan

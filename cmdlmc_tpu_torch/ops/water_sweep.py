@@ -41,6 +41,10 @@ T_NONE, T_LINEAR, T_RAMP, T_INTERP = 0, 1, 2, 3
 # masked lerp in the TPU kernel); the port keeps the JAX package's gate
 MAX_INTERP_POINTS = 1024
 
+# The most sites K7 launches at: each block keeps the site prefix sum, 12 N
+# bytes, in shared memory, within the H100's opt-in limit per block.
+MAX_SITES = ks.SMEM_OPTIN_H100 // 12
+
 # CUDA threads (replicas) per block of K7. Each block advances its own copy
 # of the prefix sum every frame, so fewer, wider blocks do less of that
 # work: on the H100 (R=8192, B=256) 32, 64, 128 and 256 threads took 1.85,
@@ -184,7 +188,8 @@ def water_sweep_reference(
     """Plain PyTorch version of K7: B4's event loop over the tables, in rows
     semantics, vectorized over replicas, one frame and one event iteration
     at a time (a done replica's iteration changes nothing, so the loop stops
-    when every replica is done)."""
+    when every replica is done). Besides the state it returns
+    ``site_trace`` [B] int32, replica 0's site after each frame."""
     B, N, _ = positions.shape
     R = site.shape[0]
     dev = site.device
@@ -203,6 +208,7 @@ def water_sweep_reference(
     jumps, evc = jumps.to(torch.int32), ev_count.to(torch.int32)
     u, cor, a = u_rem, corr, disp_base
     trunc = torch.zeros(R, dtype=torch.int32, device=dev)
+    trace = []
 
     for f in range(B):
         post = positions[f]
@@ -247,10 +253,14 @@ def water_sweep_reference(
         u = u - total_rate(rates) * (dt32 - phase)
         fsj = fsj + 1
         wait = torch.clamp(wait - 1, min=0)
+        trace.append(site[:1])
 
+    site_trace = (torch.cat(trace) if trace and R
+                  else torch.zeros(B, dtype=torch.int32, device=dev))
     return {"site": site, "last": last, "fsj": fsj, "wait": wait, "jumps": jumps,
             "ev_count": evc, "u_rem": u, "corr": cor, "disp_base": a,
-            "site_disp": s, "prev_pos": prev, "trunc": trunc}
+            "site_disp": s, "prev_pos": prev, "trunc": trunc,
+            "site_trace": site_trace}
 
 
 def water_sweep(
@@ -318,6 +328,7 @@ def water_sweep(
     s_in = site_disp.contiguous()
     s_out = s_in.clone()
     trunc = torch.zeros(R, dtype=i32, device=dev)
+    site_trace = torch.zeros(B, dtype=i32, device=dev)
     if B > 0 and R > 0:
         lx, ly, lz = (float(np.float32(b)) for b in box)
         lib = build.library()
@@ -326,8 +337,8 @@ def water_sweep(
             lib.cmdlmc_water_sweep(
                 *(t.data_ptr() for t in tables), prev_in.data_ptr(), s_in.data_ptr(),
                 s_out.data_ptr(), *(t.data_ptr() for t in state), trunc.data_ptr(),
-                R, N, B, K, int(tile), int(tile_offset), int(frame0),
-                int(max_events), int(kind), int(relax), int(waiting),
+                site_trace.data_ptr(), R, N, B, K, int(tile), int(tile_offset),
+                int(frame0), int(max_events), int(kind), int(relax), int(waiting),
                 int(bool(keep_last)), int(bool(check_old)), int(block_threads),
                 float(np.float32(dt)), float(np.float32(d_oh)), lx, ly, lz,
                 int(seed) & 0xFFFFFFFF, (ctypes.c_float * 6)(*params),
@@ -339,7 +350,7 @@ def water_sweep(
     keys = ("site", "last", "fsj", "wait", "jumps", "ev_count", "u_rem", "corr",
             "disp_base")
     out = dict(zip(keys, state))
-    out.update(site_disp=s_out, prev_pos=prev_out, trunc=trunc)
+    out.update(site_disp=s_out, prev_pos=prev_out, trunc=trunc, site_trace=site_trace)
     return out
 
 

@@ -17,6 +17,8 @@ from cmdlmc_tpu_torch.core import cell as tcell
 from cmdlmc_tpu_torch.ops.kmc_sweep_streamed import dense_tables
 from cmdlmc_tpu_torch.topo import models as tmodels
 
+from test_torch_slice import jax_kernels_run_to_end  # noqa: F401  (runs by itself)
+
 torch.set_num_threads(1)
 
 BOX = 12.0

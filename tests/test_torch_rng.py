@@ -10,6 +10,8 @@ import torch
 from cmdlmc_tpu.ops.kmc_sweep import _mix_key, _u01, _u01_t
 from cmdlmc_tpu_torch.ops import rng
 
+from test_torch_slice import jax_kernels_run_to_end  # noqa: F401  (runs by itself)
+
 torch.set_num_threads(1)
 
 

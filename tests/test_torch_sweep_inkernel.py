@@ -6,28 +6,27 @@ atol 1e-5, disp_base to atol 1e-4 (the bounds of
 tests/test_torch_sweep_streamed.py: exp, log and the rate sums round by an
 ulp differently in the two packages). Both sides get the same law parameters
 (the JAX package's packing) and the same state; the packings agree to an ulp
-of cos(theta). Also the port's two routes against each other through
-run_block_fused (kinds 0-3), the wrapper's checks, and the race on a draw of
-one."""
+of cos(theta). Also the wrapper's checks and the route rule; the port's two
+routes against each other and the race on a draw of one are in
+``test_torch_sweep_routes.py``."""
 
 from types import SimpleNamespace
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from cmdlmc_tpu.engine import lattice as jeng
 from cmdlmc_tpu.ops import kmc_sweep as jks
 from cmdlmc_tpu.rates import laws as jlaws
 from cmdlmc_tpu_torch import convert
 from cmdlmc_tpu_torch.core import cell as tcell
 from cmdlmc_tpu_torch.engine import fused
 from cmdlmc_tpu_torch.ops import kmc_sweep as ks
-from cmdlmc_tpu_torch.ops import rng
 from cmdlmc_tpu_torch.topo import models as tmodels
 from cmdlmc_tpu_torch.topo.models import PairRates
+
+from test_torch_slice import jax_kernels_run_to_end  # noqa: F401  (runs by itself)
 
 torch.set_num_threads(1)
 
@@ -139,74 +138,6 @@ def test_reference_matches_jax_kernel(jax_runs, kind):
     assert ks.kmc_sweep.launches == 0  # CPU tensors: plain version
 
 
-@pytest.mark.parametrize("kind", [0, 1, 2, 3],
-                         ids=["fermi", "constant", "exponential", "ae"])
-def test_routes_agree(inputs, kind):
-    """run_block_fused on the in-kernel route (K3's plain version, W built
-    from the law kind) and on the streamed route (stage 1 + K1's plain
-    version, W from the law module): the same state. AE rounds its rsqrt
-    differently on the two routes, as in the JAX package."""
-    block, _, state = inputs
-    model = PairRates(tcell.Cell.cubic([BOX] * 3),
-                      convert.law_from_fields(LAWS[kind]), CUTOFF, BUFFER)
-    ens = _ensemble(state)
-    assert fused.inkernel_route(model, model.cell, R, N, TR, False, torch.device("cpu"))
-    kw = dict(dt=DT, seed=SEED, tile=TR, return_truncation=True)
-    pos = torch.from_numpy(block)
-    a, ta = fused.run_block_fused(model, model.cell, ens, pos, 0, streamed=False, **kw)
-    b, tb = fused.run_block_fused(model, model.cell, ens, pos, 0, streamed=True, **kw)
-    ra, rb = a.replicas, b.replicas
-    for x, y in ((ra.occ, rb.occ), (ra.site_of_proton, rb.site_of_proton),
-                 (ra.proton_of_site, rb.proton_of_site),
-                 (ra.clock.event_count, rb.clock.event_count), (ta, tb)):
-        assert torch.equal(x, y)
-    assert int(ra.clock.event_count.sum() - ens.replicas.clock.event_count.sum()) > 0
-    torch.testing.assert_close(ra.clock.u_remaining, rb.clock.u_remaining,
-                               rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(ra.disp_base, rb.disp_base, rtol=0, atol=1e-4)
-    torch.testing.assert_close(a.site_disp, b.site_disp, rtol=0, atol=0)
-
-
-# (salt, frame, counter) whose uniform draw (seed SEED, tile 0, event 0) rounds
-# to exactly 1.0 (tests/test_torch_sweep_streamed.py::test_race_on_a_draw_of_one):
-# on the state below a zero-rate source, a zero-rate destination, and the
-# source site 19 of replica 3, whose rate is positive.
-@pytest.mark.parametrize("salt,frame,counter", [
-    (1, 120944, 48), (2, 248351, 127), (1, 875943, 115),
-], ids=["zero-source", "zero-destination", "positive-source"])
-def test_race_on_a_draw_of_one(salt, frame, counter):
-    """K3's races score zero rates 0 and use E = 0 - log(u), as K1's do: a
-    draw of 1.0 never moves a proton off an empty site or onto an occupied
-    one, and makes a positive-rate candidate win."""
-    key = rng.mix_key(SEED, 0, frame, 0, salt)
-    assert float(rng.u01_counter(key, torch.tensor(counter))) == 1.0
-    n, p, r = 32, 16, 8  # the state of tests/test_torch_sweep_streamed.py
-    jrng = np.random.RandomState(3)
-    pos0 = jrng.uniform(0, 8.1, size=(n, 3)).astype(np.float32)
-    block = (pos0[None] + np.random.RandomState(11).normal(
-        scale=0.05, size=(1, n, 3))).astype(np.float32)
-    ens = jeng.init_replicas(jax.random.fold_in(jax.random.key(0), 0), r, n, p,
-                             jnp.asarray(pos0))
-    tens = convert.ensemble_from_numpy(ens)
-    rep = tens.replicas
-    occ0 = rep.occ
-    out = ks.kmc_sweep(
-        torch.from_numpy(block), tens.prev_pos, tens.site_disp, occ0,
-        rep.proton_of_site.float(), rep.site_of_proton, rep.t_last_jump,
-        rep.disp_base, torch.full((r,), 1e-6), rep.clock.event_count,
-        ks.law_params_array(convert.law_from_fields(LAWS[0])), frame, (BOX,) * 3,
-        kind=0, tile=TR, max_events=1, dt=DT, seed=SEED, cutbuf=CUTOFF + BUFFER)
-    assert torch.equal(out["ev_count"], rep.clock.event_count + 1)
-    occ = out["occ"]
-    assert bool(((occ == 0) | (occ == 1)).all())
-    assert torch.equal(occ.sum(dim=1), torch.full((r,), float(p)))
-    row, site = divmod(counter, n)
-    if counter != 115:
-        assert float(occ[row, site]) == float(occ0[row, site])
-    else:  # the proton on site 19 is the one that jumps
-        assert float(occ0[row, site]) == 1.0 and float(occ[row, site]) == 0.0
-
-
 def test_wrapper_validates(inputs):
     block, pgrp, state = inputs
     args = [torch.from_numpy(a) for a in state]
@@ -227,24 +158,24 @@ def test_wrapper_validates(inputs):
 
 
 def test_route_rule():
-    """K3 below 16 RNG tiles when W[N, N+1] fits in an H100 block's shared
-    memory (227 KB opt-in: N=224 at 8 warps, not N=225); stage 1 + K1 at 16
-    tiles, with stale rates, or for a law K3 does not evaluate."""
-    cpu = torch.device("cpu")
+    """K3 below 16 RNG tiles up to the route's site limit
+    (``fused.INKERNEL_MAX_SITES``, a frozen boundary); stage 1 + K1 at 16
+    tiles, past the site limit, with stale rates, or for a law K3 does not
+    evaluate."""
     cell = tcell.Cell.cubic([BOX] * 3)
     model = PairRates(cell, convert.law_from_fields(LAWS[0]), CUTOFF, BUFFER)
-    assert ks.smem_bytes(144, 8) == 4 * (144 * 145 + 6 * 144 + 8 * 3 * 144 + 4 * 144)
-    assert fused.inkernel_route(model, cell, 1024, 144, 128, False, cpu)
-    assert not fused.inkernel_route(model, cell, 2048, 144, 128, False, cpu)
-    assert not fused.inkernel_route(model, cell, 1024, 144, 128, True, cpu)
-    assert ks.WARPS_PER_BLOCK == 8
-    assert fused.inkernel_route(model, cell, 1024, 224, 128, False, cpu)
-    assert not fused.inkernel_route(model, cell, 1024, 225, 128, False, cpu)
+    most = fused.INKERNEL_MAX_SITES
+    assert fused.inkernel_route(model, cell, 1024, 144, 128, False)
+    assert not fused.inkernel_route(model, cell, 2048, 144, 128, False)
+    assert not fused.inkernel_route(model, cell, 1024, 144, 128, True)
+    assert fused.inkernel_route(model, cell, 1024, most, 128, False)
+    assert not fused.inkernel_route(model, cell, 1024, most + 1, 128, False)
+    assert "sites" in fused.inkernel_reason(model, cell, most + 1, False)
 
     class Other(torch.nn.Module):
         def forward(self, d, angle=None):
             return d
 
     odd = PairRates(cell, Other(), CUTOFF, BUFFER)
-    assert not fused.inkernel_route(odd, cell, 16, 32, 4, False, cpu)
-    assert "law kind" in fused.inkernel_reason(odd, cell, 32, False, cpu)
+    assert not fused.inkernel_route(odd, cell, 16, 32, 4, False)
+    assert "law kind" in fused.inkernel_reason(odd, cell, 32, False)

@@ -24,6 +24,8 @@ from cmdlmc_tpu_torch import convert
 from cmdlmc_tpu_torch.engine import fused
 from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 
+from test_torch_slice import jax_kernels_run_to_end  # noqa: F401  (runs by itself)
+
 torch.set_num_threads(1)
 
 N, P, R, TR, B = 32, 16, 8, 4, 12

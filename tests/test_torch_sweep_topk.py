@@ -27,6 +27,8 @@ from cmdlmc_tpu_torch.engine import fused
 from cmdlmc_tpu_torch.ops import rng
 from cmdlmc_tpu_torch.ops import topk_sweep as ts
 
+from test_torch_slice import jax_kernels_run_to_end  # noqa: F401  (runs by itself)
+
 torch.set_num_threads(1)
 
 N, P, R, TR, B = 32, 12, 16, 4, 6

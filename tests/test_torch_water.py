@@ -1,4 +1,4 @@
-"""The port's water slice against the JAX package on the CPU.
+"""The port's water event loop against the JAX package on the CPU.
 
 * The plain version of kernel K7 (``ops/water_sweep.py::water_sweep_reference``)
   against the JAX package's water kernel B4 (``water_sweep``, interpret mode,
@@ -14,23 +14,16 @@
   disp_base, site_disp and prev to rtol 1e-5 with atol 1e-5 (log, exp and
   XLA's approximate rsqrt round by an ulp or so differently in the two
   packages).
-* The tables (K5's plain version with no cutoff) against B4's table
-  arithmetic written out in jnp (``water_sweep.py:319-360``): indices exact,
-  distances bit for bit; the transform against ``_apply_transform`` for each
-  kind, bit for bit, with a table that repeats x points.
-* The slice: ``cli/kmc_water.py::kmc_water_main`` on the CPU from the JAX
-  package's ``init_water_states`` against rows built from the JAX package's
-  ``run_water_block_fused(interpret=True)`` block by block with the JAX
-  CLI's print rule (rows equal but the fps column).
-* The port's chunk invariance, the zero-rate pick on a draw of one, the two
-  keyword loaders, the device and configuration refusals.
+* The port's chunk invariance, the zero-rate pick on a draw of one, the
+  wrapper's refusal of CPU tensors and the state conversion.
+
+The tables and the transform are held in ``test_torch_water_tables.py``, the
+``kmc_water`` slice, its per-frame site and its refusals in
+``test_torch_water_cli.py``; both take their cases from this file.
 """
 
 import dataclasses
-import io
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from cmdlmc_tpu.config import keyword as jkw
 from cmdlmc_tpu.core.cell import Cell as JCell
 from cmdlmc_tpu.models import water as jwm
 from cmdlmc_tpu.ops import kmc_sweep as jks
@@ -46,13 +38,13 @@ from cmdlmc_tpu.ops import water_sweep as jws
 from cmdlmc_tpu.rates.laws import Constant as JConstant, Fermi as JFermi
 from cmdlmc_tpu.topo import transforms as jtr
 from cmdlmc_tpu_torch import convert
-from cmdlmc_tpu_torch.cli import kmc_water as tcli
-from cmdlmc_tpu_torch.config import keyword as tkw
 from cmdlmc_tpu_torch.models import water as twm
 from cmdlmc_tpu_torch.ops import kmc_sweep as ks
 from cmdlmc_tpu_torch.ops import rng
 from cmdlmc_tpu_torch.ops import water_sweep as ws
 from cmdlmc_tpu_torch.rates.laws import Fermi
+
+from test_torch_slice import jax_kernels_run_to_end  # noqa: F401  (runs by itself)
 
 torch.set_num_threads(1)
 
@@ -230,61 +222,6 @@ def test_cases_reach_their_branches(jax_runs):
     assert bool((promoted[1][:, 2] == last3.long()).all())
 
 
-def test_tables_match_b4_arithmetic():
-    """K5's plain version with no cutoff against B4's per-frame table build
-    written out in jnp: rows minimg1(p_i - p_j), acc over the dims from 0,
-    sqrt, self at 1e9, K passes of min and first argmin with the pick masked
-    (indices exact, distances bit for bit)."""
-    _, pos = _frames(n_frames=3, seed=4)
-    # two sites at the same distance from a third: a tie
-    pos[:, 5] = pos[:, 4] + np.float32([1.0, 0.0, 0.0])
-    pos[:, 6] = pos[:, 4] - np.float32([1.0, 0.0, 0.0])
-    for k in (3, 4):
-        topd, topi, _ = ws.water_tables(torch.from_numpy(pos), (BOX,) * 3, k,
-                                        ws.T_NONE, np.zeros(5, np.float32))
-        for f in range(pos.shape[0]):
-            post = jnp.asarray(pos[f].T)  # [3, N]
-            acc = jnp.zeros((N, N), jnp.float32)
-            for dim in range(3):
-                delta = post[dim][:, None] - post[dim][None, :]
-                dd = delta - _f(BOX) * jnp.round(delta / _f(BOX))
-                acc = acc + dd * dd
-            d = jnp.where(jnp.eye(N, dtype=bool), _f(1.0e9), jnp.sqrt(acc))
-            lane = jnp.arange(N)[None, :]
-            for kk in range(k):
-                vals = jnp.min(d, axis=1)
-                idx = jnp.argmin(d, axis=1)
-                np.testing.assert_array_equal(topi[f, kk].numpy(), np.asarray(idx))
-                np.testing.assert_array_equal(topd[f, kk].numpy(), np.asarray(vals))
-                d = jnp.where(lane == idx[:, None], _f(1.0e9), d)
-
-
-@pytest.mark.parametrize("tname", ["none", "linear", "ramp", "interp"])
-def test_transform_matches_b4(tname):
-    """apply_transform against B4's _apply_transform, bit for bit, on
-    distances that hit every segment, both bounds, the repeated points and
-    the table's ends exactly."""
-    rs = np.random.RandomState(7)
-    d = np.concatenate([rs.uniform(0.5, 12.0, 4000), INTERP_X, [0.0, 1.2, 2.0, 3.0, 10.0],
-                        np.nextafter(INTERP_X, 0), np.nextafter(INTERP_X, 9)]
-                       ).astype(np.float32).reshape(1, -1)
-    jt = _transform(tname)
-    jm = jwm.WaterModel(cell=JCell.cubic([BOX] * 3), law=JFermi(a=_f(0.1), b=_f(2.3), c=_f(0.1)),
-                        transform=jt, d_oh=_f(0.0))
-    tkind, tparams, tx, ty = jwm._transform_spec(jm)
-    m = 0 if tx is None else tx.shape[0]
-    tp = [tparams[i] for i in range(5)]
-    want = jws._apply_transform(tkind, jnp.asarray(d), tp,
-                                tx=None if tx is None else [tx[i] for i in range(m)],
-                                ty=None if ty is None else [ty[i] for i in range(m)],
-                                m_interp=m)
-    tm = convert.water_model_from_fields(jm)
-    tkind2, tparams2, tx2, ty2 = twm._transform_spec(tm)
-    assert tkind2 == tkind
-    got = ws.apply_transform(tkind2, torch.from_numpy(d), tparams2, tx2, ty2)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
 def test_chunk_invariance():
     """One 16-frame block equals two 8-frame blocks (draws are keyed by the
     absolute frame; the second block starts from the first's state)."""
@@ -343,139 +280,12 @@ def test_pick_on_a_draw_of_one():
     assert int(out["site"][r]) == 2  # slot 1, not the zero-rate slot 2 (site 3)
 
 
-def _write_water_inputs(tmp_path, frames=32, chunk=16):
-    _, pos = _frames(n_frames=frames, seed=9)
-    from cmdlmc_tpu_torch.io.xyz import write_xyz_frame
-
-    traj = tmp_path / "water.xyz"
-    with open(traj, "w") as f:
-        for fr in pos:
-            write_xyz_frame(f, ["O"] * N, fr)
-    cfg = tmp_path / "water.cfg"
-    cfg.write_text(f"""filename {traj}
-pbc {BOX} {BOX} {BOX}
-md_timestep_fs {DT}
-sweeps {frames}
-print_frequency 5
-chunk_size {chunk}
-jumprate_params_fs a=0.3 b=2.3 c=0.1
-rescale_function linear
-rescale_parameters a=0.5 b=1.2 left_bound=0 right_bound=10
-relaxation_time 10
-d_oh 0.3
-keep_last_neighbor_rescaled True
-seed {SEED}
-replicas {R}
-""")
-    return cfg, pos
-
-
-def _rows(text):
-    return [ln.split()[:-1] for ln in text.splitlines() if ln and not ln.startswith("#")]
-
-
-def test_slice_matches_jax(tmp_path):
-    """kmc_water_main on the CPU from the JAX package's initial states
-    against the JAX package's fused path in interpret mode, block by block,
-    printed by the JAX CLI's rule (the block-end site and jumps of replica 0
-    at every print frame of the block, its position the frame's O plus the
-    block-end correction). Two blocks of 16 frames, so the static
-    configuration and shapes are those of the linear_check_old case."""
-    cfg, pos = _write_water_inputs(tmp_path)
-    settings = tkw.load_configfile(str(cfg), config_name="KMCWater")
-    jm = _jax_model("linear_check_old")
-    assert float(jm.d_oh) == float(np.float32(settings.d_oh))
-    states = jwm.init_water_states(jax.random.fold_in(jax.random.key(SEED), 0), R, N,
-                                   jnp.asarray(pos[0]))
-    t_states = convert.water_states_from_fields(states)
-    want, sd, prev = [], jnp.zeros((N, 3), jnp.float32), jnp.asarray(pos[0])
-    for b0 in range(0, pos.shape[0], 16):
-        block = jnp.asarray(pos[b0:b0 + 16])
-        states, sd, prev, trunc = jwm.run_water_block_fused(
-            jm, states, block, b0, site_disp=sd, prev_pos=prev, dt=DT, seed=SEED,
-            tile=TR, interpret=True, layout="rows", return_truncation=True)
-        site0, jumps0 = int(states.site[0]), int(states.jumps[0])
-        corr0 = np.asarray(states.correction)[0]
-        for i in range(16):
-            step = b0 + i
-            if step % 5 == 0:
-                p = pos[b0 + i, site0] + corr0
-                want.append("{:18d} {:18.2f} {:15.8f} {:15.8f} {:15.8f} {:10d} {:10d}"
-                            .format(step, step * DT, p[0], p[1], p[2], site0, jumps0).split())
-    buf = io.StringIO()
-    final = tcli.kmc_water_main(settings, out=buf, device="cpu", initial_states=t_states,
-                                tile=TR)
-    text = buf.getvalue()
-    assert "# kmc_water" not in text and "O-Neighbor" in text
-    assert _rows(text) == want
-    assert int(final.clock.event_count.sum()) == int(np.asarray(states.clock.event_count).sum())
-    np.testing.assert_allclose(final.displacement.numpy(), np.asarray(states.displacement),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_keyword_loaders_agree(tmp_path):
-    """The port's copy of the keyword loader returns the JAX package's
-    settings on examples/water.cfg and on the KMCWater template."""
-    tmpl = io.StringIO()
-    jkw.print_config_template("KMCWater", out=tmpl)
-    path = tmp_path / "template.cfg"
-    path.write_text(tmpl.getvalue().replace("# REQUIRED", "1"))
-    for src in (os.path.join(REPO, "examples", "water.cfg"), str(path)):
-        a = vars(jkw.load_configfile(src, config_name="KMCWater"))
-        b = vars(tkw.load_configfile(src, config_name="KMCWater"))
-        assert a.keys() == b.keys()
-        for k in a:
-            np.testing.assert_equal(b[k], a[k], err_msg=k)
-    t_help, j_help = io.StringIO(), io.StringIO()
-    tkw.print_confighelp("KMCWater", out=t_help)
-    jkw.print_confighelp("KMCWater", out=j_help)
-    assert t_help.getvalue() == j_help.getvalue()
-
-
-def test_cli_refusals(tmp_path, capsys):
-    cfg, _ = _write_water_inputs(tmp_path, frames=4, chunk=4)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            tcli.main(["load", str(cfg)])
-    tcli.main(["config_file"])
-    assert "relaxation_time" in capsys.readouterr().out
-    base = cfg.read_text()
-    bad = {
-        "triclinic": base.replace(f"pbc {BOX} {BOX} {BOX}",
-                                  f"pbc {BOX} 0 0 1 {BOX} 0 0 0 {BOX}"),
-        "n_atoms": base + "n_atoms 5\n",
-        "interp": base + f"conversion_data {tmp_path / 'big.txt'}\n",
-        "hdf5": base.replace("water.xyz", "water.h5"),
-    }
-    x = np.linspace(1.0, 4.0, ws.MAX_INTERP_POINTS + 1)
-    np.savetxt(tmp_path / "big.txt", np.stack([x, x], axis=1))
-    for name, text in bad.items():
-        path = tmp_path / f"{name}.cfg"
-        path.write_text(text)
-        settings = tkw.load_configfile(str(path), config_name="KMCWater")
-        with pytest.raises(NotImplementedError):
-            tcli.kmc_water_main(settings, out=io.StringIO(), device="cpu")
-    assert not twm.water_fused_supported(tcli.build_model(
-        tkw.load_configfile(str(tmp_path / "n_atoms.cfg"), config_name="KMCWater"), "cpu"))
-
-
 def test_wrapper_refuses_cpu_tensors():
     base, pos = _frames(n_frames=2)
     tm = convert.water_model_from_fields(_jax_model("none"))
     with pytest.raises(ValueError, match="CUDA"):
         _port_sweep(tm, pos, base, np.zeros((N, 3), np.float32), _state(),
                     sweep=ws.water_sweep)
-
-
-def test_water_modules_import_no_jax():
-    code = (
-        "import sys, cmdlmc_tpu_torch.cli.kmc_water, cmdlmc_tpu_torch.models.water, "
-        "cmdlmc_tpu_torch.ops.water_sweep, cmdlmc_tpu_torch.config.keyword, "
-        "cmdlmc_tpu_torch.convert\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cmdlmc_tpu'))\n"
-        "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
-                   env={**os.environ, "PYTHONPATH": REPO})
 
 
 def test_states_carry_over():
