@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cmdlmc_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--k4-before CSRC]
 
 Phases, each printing as it goes; any failure raises, so the run exits
 nonzero without the final ``ok`` line:
@@ -30,9 +30,14 @@ nonzero without the final ``ok`` line:
    plan forced, [64, 4608], all timed there;
 8. K4 (top-K event loop) against its plain version: TopKPairRates k=8 and
    HydroniumRates k=4 (ReLU, relaxation time 20, the blend in the loop) at
-   R=4096, B=100, N=144; law kinds 1-3 and a triclinic cell at R=256, B=16;
-   the supercells R=4096, B=16, N=4608, P=3072 and N=9216, P=6144, and
-   N=14976 at R=256, B=4 (K4's state in global scratch); timed at R=4096;
+   R=4096, B=100, N=144; law kinds 1-3, a triclinic cell, 16 events a frame
+   and slots that empty at R=256, B=16; the supercells R=4096, B=16,
+   N=4608, P=3072 and N=9216, P=6144, and N=14976 at R=256, B=4 (K4's state
+   in global scratch); timed at R=4096 with its in-neighbour lists' build,
+   the events per replica-frame and the bound from the least work beside
+   the count of a full evaluation per event; with ``--k4-before CSRC`` also
+   the K4 of an earlier tree's csrc/ (the parent's) and this K4 without its
+   staged first evaluation, timed in turns with it;
 9. the water tables (K5 with no cutoff, then the transform) bit for bit
    against their plain version at [256, 216] and [256, 1728]; K7 (the water
    event loop) against its plain version at the water path's shape (N=216,
@@ -60,8 +65,8 @@ nonzero without the final ``ok`` line:
    equal those on the CPU;
 12. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
    rates), the two top-K supercell runs and the water N=216 run traced
-   with torch.profiler (device busy and idle time, each kernel's share and
-   the Verlet epilogue's; for each run the idle time before the first
+   with torch.profiler (device busy and idle time, each kernel's share, the
+   Verlet epilogue's and that of K4's in-neighbour lists; for each run the idle time before the first
    launch of its main kernel apart from the gaps between launches, and the
    host ranges that fill those gaps), and the host's xyz parse of the dense
    and water trajectories timed alone.
@@ -1196,19 +1201,30 @@ def phase_k6(dev):
     return result
 
 
+# phase_k4's two stress cases of K4's carried sums: bench.py's Fermi at 8x
+# its amplitude (about 19 events per replica-frame at N=144, so a budget of
+# 16 is used up), and that law within 1.6 + 0.4 A of 3 protons, where most
+# sites have exhausted slots (about 1.6 neighbours in range at bench.py's
+# density) and a move often takes a slot's last positive candidate away
+HOT_FERMI = (8 * FERMI[0], FERMI[1], FERMI[2])
+SPARSE_CUT, SPARSE_PROTONS = (1.6, 0.4), 3
+
 TOPK_STATE_KEYS = ("occ", "labels", "sites", "tlast", "tlast_site", "disp_base",
                    "u_rem", "ev_count")
 TRICLINIC_VECTORS = ((BOX, 0.0, 0.0), (0.2 * BOX, BOX, 0.0), (0.15 * BOX, 0.1 * BOX, BOX))
 
 
-def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
+def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0,
+               max_events=MAX_EVENTS):
     """A top-K model ("topk": TopKPairRates k=8 with law kind `kind`;
     "hydronium": HydroniumRates k=4, ReLU, the blend; "supercell": the
     TopKPairRates of tools/bench_topk_e2e.py; "box4": that of the box x4
-    supercell deployment; "wide": WIDE_SITES sites at bench.py's density),
-    a block of its frames, its stage-1 tables, random replica state [prev,
-    s, occ, labels, sites, tlast, tlast_site, disp_base, u, evc] and the
-    sweep's keywords."""
+    supercell deployment; "wide": WIDE_SITES sites at bench.py's density;
+    "hot": "topk" with HOT_FERMI, about 8x the events; "sparse": HOT_FERMI
+    within SPARSE_CUT of SPARSE_PROTONS protons, so that most sites have
+    exhausted slots and moves empty slots), a block of its frames, its
+    stage-1 tables, random replica state [prev, s, occ, labels, sites,
+    tlast, tlast_site, disp_base, u, evc] and the sweep's keywords."""
     import numpy as np
     import torch
 
@@ -1222,6 +1238,7 @@ def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
                        "box4": (BX_SITES, BX_PROTONS, BX_BOX),
                        "wide": (WIDE_SITES, N_PROTONS * WIDE_SITES // N_SITES,
                                 BOX * (WIDE_SITES / N_SITES) ** (1.0 / 3.0)),
+                       "sparse": (N_SITES, SPARSE_PROTONS, BOX),
                        }.get(name, (N_SITES, N_PROTONS, BOX))
     if name == "box4":
         block = _box4_block(frames, seed)
@@ -1237,12 +1254,18 @@ def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
     cell = (Cell.triclinic(TRICLINIC_VECTORS, device=dev) if triclinic
             else Cell.cubic([box] * 3, device=dev))
     law = _k3_law(kind).to(dev)
+    if name in ("hot", "sparse"):
+        from cmdlmc_tpu_torch.rates.laws import Fermi
+
+        law = Fermi(a=HOT_FERMI[0], b=HOT_FERMI[1], c=HOT_FERMI[2]).to(dev)
     if name == "hydronium":
         model = HydroniumRates(
             cell, law, CUTOFF, BUFFER,
             transform=ReLUTransformation(a=RELU[0], b=RELU[1], d0=RELU[2],
                                          left_bound=RELU[3], right_bound=RELU[4]).to(dev),
             interpolator=DistanceInterpolator(relaxation_time=RELAX).to(dev), k=HYD_K)
+    elif name == "sparse":
+        model = TopKPairRates(cell, law, *SPARSE_CUT, k=TOPK_K)
     else:
         model = TopKPairRates(cell, law, CUTOFF, BUFFER, k=TOPK_K)
     pos = torch.from_numpy(block).to(dev)
@@ -1257,7 +1280,7 @@ def _k4_inputs(dev, replicas, frames, name, kind=0, triclinic=False, seed=0):
              rep.disp_base, rep.clock.u_remaining, rep.clock.event_count]
     tile = ts.pick_tile_topk(replicas, n_sites=n, n_protons=protons, k_cand=model.k)
     kw = dict(orthorhombic=cell.orthorhombic, kind=kind, tile=tile,
-              max_events=MAX_EVENTS, dt=DT, seed=1, blend=blend)
+              max_events=max_events, dt=DT, seed=1, blend=blend)
     return model, pos, tables, state, kw
 
 
@@ -1338,50 +1361,213 @@ def _k4_check(label, model, pos, tables, state, got, want, frame0, kw) -> float:
                  lambda: _partings(pos.shape[0], state, step, margin, TOPK_STATE_KEYS))
 
 
-def topk_bound(R, B, N, P, K, events, blend, table_bytes) -> dict:
-    """Bound of a top-K sweep that fired `events` events: each rate
-    evaluation is K candidates at each of the P occupied sites per replica
-    (occ[i] is 1 there: 1 - occ[nbr], the multiply by omega and the add into
-    the slot sum; with the blend also d + ratio (r - d), the clamp at 50 and
-    the Fermi law, 9 more, and the site's ratio, 3 per site), one per event
-    plus the one that ends each replica-frame; each event races the K slots
-    and the P occupied sites, the only ones with a positive rate (a log, a
-    divide and a compare each). Bytes: positions, the tables, the replica
-    state read once and written once."""
-    per_site = K * (12.0 if blend else 3.0) + (3.0 if blend else 0.0)
-    flops = (events + R * B) * P * per_site + 3.0 * (P + K) * events
-    state = 4.0 * R * (3 * N + 5 * P + 2)  # occ, labels, tlast_site, sites, tlast, db, u, evc
+def topk_changed(tables, blend) -> float:
+    """The candidates one event changes, counted from the run's tables
+    [B, K, N] (topd, topi, resc) and averaged over the frames: src's and
+    dst's K slots and the entries whose neighbour is src or dst. A site is
+    a move's end through one of its in-entries, so each end's in-degree is
+    the size-biased mean sum(deg^2) / sum(deg) over the entries with a
+    nonzero rate (omega > 0; the others change nothing)."""
+    import torch
+
+    topd, topi, resc = tables
+    B, K, N = topi.shape
+    valid = (topd < 1.0e5) if blend else (resc > 0)
+    flat = (topi.long() + torch.arange(B, device=topi.device)[:, None, None] * N)[valid]
+    deg = torch.bincount(flat, minlength=B * N).reshape(B, N).to(torch.float64)
+    biased = (deg * deg).sum(dim=1) / deg.sum(dim=1).clamp(min=1)
+    return 2.0 * K + 2.0 * float(biased.mean())
+
+
+def _topk_terms(R, N, P, K, blend):
+    """Operations per candidate (occ[i] is 1 at the P occupied sites: 1 -
+    occ[nbr], the multiply by omega and the add; with the blend also d +
+    ratio (r - d), the clamp at 50 and the Fermi law, 9 more, and the site's
+    ratio, 3 per site) and the replica state's bytes (occ, labels,
+    tlast_site, sites, tlast, db, u, evc)."""
+    per_cand = (12.0 if blend else 3.0) + (3.0 / K if blend else 0.0)
+    return per_cand, 4.0 * R * (3 * N + 5 * P + 2)
+
+
+def topk_bound(R, B, N, P, K, events, blend, table_bytes, changed) -> dict:
+    """Bound of a top-K sweep that fired `events` events, from the least
+    work: one full evaluation per replica-frame (K candidates at each of the
+    P occupied sites), per event the `changed` candidates
+    (:func:`topk_changed`) and the races over the K slots and the P
+    occupied sites, the only ones with a positive rate (a log, a divide and
+    a compare each). Bytes: positions, the tables, the replica state read
+    once and written once."""
+    per_cand, state = _topk_terms(R, N, P, K, blend)
+    flops = (R * B * P * K * per_cand
+             + events * (changed * per_cand + 3.0 * (P + K)))
     return bound(flops, 4.0 * B * N * 3 + table_bytes + 2 * state + 4.0 * R
                  + 4 * 4.0 * N * 3)
 
 
-def phase_k4(dev):
-    """K4 against topk_sweep_reference on the same tables: TopKPairRates k=8
-    (Fermi) and HydroniumRates k=4 (the blend in the loop) at the top-K
-    path's launch shape R=4096, B=100, N=144, timed there; law kinds 1-3 and
-    a triclinic cell at R=256, B=16; the supercells at R=4096, B=16: N=4608,
-    P=3072 and the box x4 deployment's N=9216, P=6144 (RNG tile from
-    pick_tile_topk), timed there; N=WIDE_SITES at R=256, B=4, where the
-    global layout runs (K4's state in global scratch)."""
+def full_topk_bound(R, B, N, P, K, events, blend, table_bytes) -> dict:
+    """The bound as counted before the carried sums: a full evaluation per
+    event besides the one that ends each replica-frame."""
+    per_cand, state = _topk_terms(R, N, P, K, blend)
+    flops = (events + R * B) * P * K * per_cand + 3.0 * (P + K) * events
+    return bound(flops, 4.0 * B * N * 3 + table_bytes + 2 * state + 4.0 * R
+                 + 4 * 4.0 * N * 3)
+
+
+def _k4_before_libraries(parent_csrc):
+    """Start the nvcc builds of the K4s timed beside this one: the parent's
+    ``topk_sweep.cu`` from `parent_csrc` (a copy of an earlier tree's
+    csrc/, e.g. from ``git archive``) and this tree's built with
+    -DCMDLMC_TOPK_UNSTAGED (the first evaluation read by every warp from
+    L2). Returns a function that waits for both and loads them."""
+    import ctypes
+
+    from cmdlmc_tpu_torch.ops import build
+
+    out = build.BUILD_DIR / "k4_before"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {"parent": ([Path(parent_csrc) / "topk_sweep.cu"], []),
+            "unstaged": ([build.CSRC_DIR / "topk_sweep.cu", build.CSRC_DIR / "errors.cu"],
+                         ["-DCMDLMC_TOPK_UNSTAGED"])}
+    procs = {name: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, *defs, "-shared", "-o",
+         str(out / f"{name}.so"), *map(str, srcs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (srcs, defs) in jobs.items()}
+
+    def wait():
+        libs = {}
+        for name, proc in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc of the {name} K4 failed:\n{log}")
+            for line in log.splitlines():
+                if "topk_sweep_kernel" in line or "registers" in line or "spill" in line:
+                    say(f"[k4] {name} build: {line.strip()}")
+            libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+        parent = libs["parent"]
+        parent.cmdlmc_topk_sweep_scratch.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        sig = build._SIGNATURES["cmdlmc_topk_sweep"]
+        parent.cmdlmc_topk_sweep.argtypes = sig[:4] + sig[6:]  # no in-lists
+        for name in ("cmdlmc_topk_sweep", "cmdlmc_topk_sweep_plan"):
+            getattr(libs["unstaged"], name).argtypes = build._SIGNATURES[name]
+        libs["unstaged"].cmdlmc_error_string.argtypes = [ctypes.c_int]
+        libs["unstaged"].cmdlmc_error_string.restype = ctypes.c_char_p
+        return libs
+
+    return wait
+
+
+def _parent_k4_call(lib, model, pos, tables, state, frame0, **kw):
+    """The parent's K4 launched as its wrapper launched it (the same
+    arguments less the in-neighbour lists), on copies of the state."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
 
+    B, N, _ = pos.shape
+    K, R, P = tables[0].shape[1], state[2].shape[0], state[4].shape[1]
+    prev, s_in, *rest = state
+    st = [t.clone() for t in rest]
+    s_out, prev_out = torch.empty_like(s_in), torch.empty_like(prev)
+    trunc = torch.empty(R, dtype=torch.int32, device=pos.device)
+    nbytes = ctypes.c_longlong(0)
+    build.check(lib.cmdlmc_topk_sweep_scratch(R, N, K, int(kw["blend"]), 0,
+                                              ctypes.byref(nbytes)), "parent K4 plan")
+    scratch = torch.empty(max(nbytes.value, 1), dtype=torch.uint8, device=pos.device)
+    params = [float(x) for x in ts.law_params8(model).tolist()]
+    build.check(lib.cmdlmc_topk_sweep(
+        *(t.data_ptr() for t in (pos, *tables, prev, s_in, prev_out, s_out, *st,
+                                 trunc, scratch)),
+        scratch.numel(), R, N, P, B, K, kw["tile"], 0, frame0, kw["max_events"],
+        kw["kind"], int(kw["blend"]), int(kw["orthorhombic"]), float(np.float32(kw["dt"])),
+        params[6], kw["seed"], (ctypes.c_float * 6)(*params[:6]),
+        (ctypes.c_float * 18)(*[float(x) for x in model.geometry]),
+        build.stream_of(pos), 0), "parent K4")
+    keys = ("occ", "labels", "sites", "tlast", "tlast_site", "disp_base", "u_rem",
+            "ev_count")
+    return {**dict(zip(keys, st)), "trunc": trunc, "site_disp": s_out,
+            "prev_pos": prev_out}
+
+
+@contextlib.contextmanager
+def _library(lib):
+    """Run the port's wrappers against another build of the kernels."""
+    from cmdlmc_tpu_torch.ops import build
+
+    saved = build._lib
+    build._lib = lib
+    try:
+        yield
+    finally:
+        build._lib = saved
+
+
+def _k4_before(libs, model, pos, tables, state, frame0, kw, got):
+    """The parent's K4 and this K4 unstaged, timed in turns with this K4
+    (parent, this, unstaged, unstaged, this, parent; 3 launches each),
+    as text."""
+    this = lambda: _k4_call(model, pos, tables, state, frame0, **kw)  # noqa: E731
+    parent = lambda: _parent_k4_call(libs["parent"], model, pos, tables, state,  # noqa: E731
+                                     frame0, **kw)
+
+    def unstaged():
+        with _library(libs["unstaged"]):
+            return this()
+
+    times = {"parent": [], "this": [], "unstaged": []}
+    outs = {}
+    for name, fn in (("parent", parent), ("this", this), ("unstaged", unstaged),
+                     ("unstaged", unstaged), ("this", this), ("parent", parent)):
+        ms, outs[name] = cuda_ms(fn, reps=3)
+        times[name].append(ms)
+    same = {name: int(_agreeing(outs[name], got).sum())
+            for name in ("parent", "unstaged")}
+    text = "; ".join(f"{name} " + ", ".join(f"{t:.3f}" for t in ts_) + " ms"
+                     for name, ts_ in times.items())
+    return (f"{text} (replicas whose integer state equals this K4's: parent "
+            f"{same['parent']}, unstaged {same['unstaged']} of {state[2].shape[0]})")
+
+
+def phase_k4(dev, before=None):
+    """K4 against topk_sweep_reference on the same tables: TopKPairRates k=8
+    (Fermi) and HydroniumRates k=4 (the blend in the loop) at the top-K
+    path's launch shape R=4096, B=100, N=144, timed there; law kinds 1-3, a
+    triclinic cell, the hot law at max_events 16 and the sparse case (slots
+    that empty) at R=256, B=16; the supercells at R=4096, B=16: N=4608,
+    P=3072 and the box x4 deployment's N=9216, P=6144 (RNG tile from
+    pick_tile_topk), timed there; N=WIDE_SITES at R=256, B=4, where the
+    global layout runs (K4's state in global scratch). At each timed shape
+    also the in-neighbour lists' build, the events per replica-frame, the
+    bound from the least work beside the count of a full evaluation per
+    event and, with `before` (from :func:`_k4_before_libraries`), the
+    parent's K4 and this one unstaged, timed in turns with it."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    libs = before() if before else None
     worst, result = 0.0, {}
     cases = [("topk", TOPK_REPLICAS, PRINT_FREQ, 0, False),
              ("hydronium", TOPK_REPLICAS, PRINT_FREQ, 0, False),
              ("topk", 256, 16, 1, False), ("topk", 256, 16, 2, False),
              ("topk", 256, 16, 3, False), ("topk", 256, 16, 0, True),
+             ("hot", 256, 16, 0, False), ("sparse", 256, 16, 0, False),
              ("supercell", SC_REPLICAS, 16, 0, False),
              ("box4", SC_REPLICAS, 16, 0, False), ("wide", 256, 4, 0, False)]
-    want_layout = {N_SITES: "shared", SC_SITES: "shared", BX_SITES: "shared",
-                   WIDE_SITES: "global"}
+    want_layout = {N_SITES: 0, SC_SITES: 0, BX_SITES: 0, WIDE_SITES: 1}
     for name, R, B, kind, tri in cases:
-        model, pos, tables, state, kw = _k4_inputs(dev, R, B, name, kind, tri, seed=kind)
+        max_events = 16 if name == "hot" else MAX_EVENTS
+        model, pos, tables, state, kw = _k4_inputs(dev, R, B, name, kind, tri,
+                                                   seed=kind, max_events=max_events)
         N, P, K = pos.shape[1], state[4].shape[1], tables[0].shape[1]
-        layout = "global" if ts.sweep_scratch_bytes(R, N, K, kw["blend"], dev) else "shared"
+        plan = ts.sweep_plan(R, N, K, kw["blend"], dev)
         label = (f"{name} k={K} kind {kind}{' triclinic' if tri else ''} R={R} B={B} "
-                 f"N={N} TR={kw['tile']} layout {layout!r}")
-        if layout != want_layout[N]:
-            raise AssertionError(f"K4 {label}: expected the {want_layout[N]!r} layout")
+                 f"N={N} P={P} TR={kw['tile']} max_events {max_events} plan {plan}")
+        if plan["layout"] != want_layout[N]:
+            raise AssertionError(f"K4 {label}: expected layout {want_layout[N]}")
         timed = R == TOPK_REPLICAS
         frame0 = 0 if timed or name == "wide" else 500
         ms, got = cuda_ms(lambda: _k4_call(model, pos, tables, state, frame0, **kw),
@@ -1391,12 +1577,27 @@ def phase_k4(dev):
         worst = max(worst, _k4_check(label, model, pos, tables, state, got, want,
                                      frame0, kw))
         events = int(want["ev_count"].sum() - state[9].sum())
-        n_tab = 3 if kw["blend"] else 2
-        b = topk_bound(R, B, N, P, K, events, kw["blend"], 4.0 * n_tab * B * K * N)
-        if timed:
-            say(f"[k4] {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {events} events)")
-        if name == "topk" and timed:
+        if name == "sparse":
+            valid = tables[0] < 1.0e5
+            mixed = float((valid[:, 0] & ~valid[:, -1]).float().mean())
+            say(f"[k4] {label}: {100 * mixed:.1f}% of site-frames have both live and "
+                f"exhausted slots; {events} events")
+        if not timed:
+            continue
+        table_bytes = 4.0 * (3 if kw["blend"] else 2) * B * K * N
+        changed = topk_changed(tables, kw["blend"])
+        b = topk_bound(R, B, N, P, K, events, kw["blend"], table_bytes, changed)
+        old = full_topk_bound(R, B, N, P, K, events, kw["blend"], table_bytes)
+        lists_ms, _ = cuda_ms(lambda: ts.in_neighbour_lists(tables[1]), reps=5)
+        say(f"[k4] {label}: kernel {ms:.3f} ms (in-neighbour lists {lists_ms:.4f} ms "
+            f"of it), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}; {changed:.1f} candidates changed per event; a full "
+            f"evaluation per event: {old['bound_ms']:.4f} ms, {old['bound_by']}); "
+            f"{events} events, {events / (R * B):.3f} per replica-frame")
+        if libs:
+            say(f"[k4] {label}: in turns: "
+                f"{_k4_before(libs, model, pos, tables, state, frame0, kw, got)}")
+        if name == "topk":
             # no single PyTorch call runs this event loop
             result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
     result["max_abs_err"] = worst
@@ -2080,6 +2281,7 @@ def _union_us(intervals) -> float:
 
 
 VERLET_RANGE = "verlet_tables"
+LISTS_RANGE = "k4_in_lists"
 
 
 def _host_ranges():
@@ -2105,6 +2307,7 @@ def _host_ranges():
             (driver.Simulation, "_blocks", "next_block", "iter"),
             (eng_fused, "run_block_fused", "run_block", "call"),
             (ts, "topk_tables_verlet", VERLET_RANGE, "call"),
+            (ts, "in_neighbour_lists", LISTS_RANGE, "call"),
             (kns, "sparse_plan_for", "sparse_plan", "call"),
             (driver.Simulation, "_fused_post", "fused_post", "call"),
             (driver.Simulation, "_emit_fused", "emit_rows", "gen")]
@@ -2113,7 +2316,7 @@ def _host_ranges():
 @contextlib.contextmanager
 def _annotated():
     """Run the host stages of :func:`_host_ranges` inside profiler ranges of
-    their names, for :func:`_verlet_epilogue_ms` and :func:`_idle_report`
+    their names, for :func:`_range_device_ms` and :func:`_idle_report`
     (the port itself carries no annotation). A wrapped function's
     attributes (a launch or rebuild counter) are carried over and back."""
     from torch.profiler import record_function
@@ -2210,19 +2413,20 @@ def _idle_report(all_events, device_events, main_kernel):
             f"after the last {tail / 1e3:.2f} ms")
 
 
-def _verlet_epilogue_ms(events, knn_kernels) -> float:
-    """Device time of the kernels launched inside VERLET_RANGE, but for
-    the K-nearest kernels of the rebuilds: the drift tests and the
-    frozen-id distances and gathers (matched by the launch's correlation
-    id)."""
+def _range_device_ms(events, name, exclude=()) -> float:
+    """Device time of the kernels launched inside the profiler range `name`
+    (matched by the launch's correlation id), but for those whose names hold
+    one of `exclude`: for VERLET_RANGE, less the K-nearest kernels of the
+    rebuilds, the Verlet epilogue (the drift tests and the frozen-id
+    distances and gathers); for LISTS_RANGE, K4's in-neighbour lists."""
     ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("name") == VERLET_RANGE and e.get("cat") == "user_annotation"]
+              if e.get("name") == name and e.get("cat") == "user_annotation"]
     corr = {e["args"]["correlation"] for e in events
             if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
             and any(a <= e["ts"] <= b for a, b in ranges)}
     return sum(e["dur"] for e in events
                if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in corr
-               and not any(k in e["name"] for k in knn_kernels)) / 1e3
+               and not any(k in e["name"] for k in exclude)) / 1e3
 
 
 def phase_profile(card: str):
@@ -2235,7 +2439,8 @@ def phase_profile(card: str):
     (the default: no wait), to show what the host's wait costs. Device busy time is the union of kernel
     and copy intervals in the trace; idle is the rest of the traced wall
     time; the box x4 run's Verlet epilogue is the device time launched from
-    its stage 1 but for K5 and K6. Each run's idle time is split at the
+    its stage 1 but for K5 and K6, and each top-K run's in-neighbour lists
+    the device time launched from their build. Each run's idle time is split at the
     first and last launch of its main kernel (K1, K4, K7) and laid against
     the host stages (:func:`_idle_report`). Also times the host's xyz parse
     of the dense and the water trajectories alone."""
@@ -2308,11 +2513,12 @@ def phase_profile(card: str):
             ms = sum(e["dur"] for e in events if kname in e["name"]) / 1e3
             rest -= ms
             shares.append(f"{tag} {ms:.3f} ms ({100 * ms / busy:.2f}% of busy)")
-        epilogue = _verlet_epilogue_ms(all_events, knn.values())
-        if epilogue:
-            rest -= epilogue
-            shares.append(f"Verlet epilogue {epilogue:.3f} ms "
-                          f"({100 * epilogue / busy:.2f}% of busy)")
+        for what, range_name, exclude in (("Verlet epilogue", VERLET_RANGE, knn.values()),
+                                          ("K4's in-neighbour lists", LISTS_RANGE, ())):
+            ms = _range_device_ms(all_events, range_name, exclude)
+            if ms:
+                rest -= ms
+                shares.append(f"{what} {ms:.3f} ms ({100 * ms / busy:.2f}% of busy)")
         perf = [ln for ln in buf.getvalue().splitlines()
                 if ln.startswith("# perf:")]
         say(f"[profile] {name}: traced wall {wall_ms:.2f} ms, device busy "
@@ -2341,6 +2547,11 @@ def main() -> int:
                          "stale rates) and the top-K supercells with "
                          "torch.profiler and print where the device time "
                          "goes")
+    ap.add_argument("--k4-before", metavar="CSRC",
+                    help="also time, in turns with K4 at its timed shapes, "
+                         "the K4 of an earlier tree's csrc/ directory (e.g. "
+                         "the parent's, from git archive) and this K4 "
+                         "without its staged first evaluation")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2360,6 +2571,7 @@ def main() -> int:
     say(f"[env] nvidia-smi: {card}")
 
     t0 = time.perf_counter()
+    before = _k4_before_libraries(opts.k4_before) if opts.k4_before else None
     build.library()
     info = build.build_info
     say(f"[build] {'built' if info['built'] else 'loaded'} {info['path']} in "
@@ -2374,7 +2586,7 @@ def main() -> int:
     k3 = phase_k3(dev)
     k5 = phase_k5(dev)
     k6 = phase_k6(dev)
-    k4 = phase_k4(dev)
+    k4 = phase_k4(dev, before)
     k7 = phase_k7(dev)
     paths = phase_end_to_end(card)
     paths.update(phase_water(card))

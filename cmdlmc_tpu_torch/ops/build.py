@@ -54,9 +54,9 @@ _SIGNATURES = {
     "cmdlmc_knn_tables": [_P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I],
     "cmdlmc_knn_sparse": [_P, _I, _I, _I] + [_F] * 4 + [_P, _P] + [_I] * 5
     + [_P, _P, _P, _I],
-    "cmdlmc_topk_sweep_scratch": [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)],
+    "cmdlmc_topk_sweep_plan": [_I] * 5 + [ctypes.POINTER(_LL)],
     "cmdlmc_topk_sweep": (
-        [_P] * 18 + [ctypes.c_longlong] + [_I] * 12 + [_F, _F, ctypes.c_uint32]
+        [_P] * 20 + [_LL] + [_I] * 12 + [_F, _F, ctypes.c_uint32]
         + [ctypes.POINTER(_F)] * 2 + [_P, _I]
     ),
     "cmdlmc_water_sweep": (

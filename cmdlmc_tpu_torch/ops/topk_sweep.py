@@ -17,8 +17,9 @@ triclinic cell takes ``model.shared``, the counterpart of the JAX package's
 XLA build. :func:`topk_tables_verlet` freezes the candidate ids between
 drift-triggered rebuilds (Verlet candidate reuse) and recomputes the
 distances at the frozen ids every frame. Stage 2 advances every replica
-through the block: the CUDA kernel ``csrc/topk_sweep.cu`` (K4) for tensors
-on the card, :func:`topk_sweep_reference` for tensors on the CPU.
+through the block: the CUDA kernel ``csrc/topk_sweep.cu`` (K4, over the
+tables and their :func:`in_neighbour_lists`) for tensors on the card,
+:func:`topk_sweep_reference` for tensors on the CPU.
 
 Draws are keyed as in the dense kernels (``ops/rng.py``): the slot race with
 salt 11 and counter ``replica_in_tile * K + slot``, the site race with salt
@@ -469,19 +470,37 @@ def topk_sweep_reference(
     return out
 
 
-def sweep_scratch_bytes(R: int, N: int, K: int, blend: bool,
-                        device: torch.device) -> int:
-    """Global scratch K4 needs at (R, N, K, blend) on ``device``, from the
-    kernel's own plan: 0 where its state fits shared memory (the shared
-    layout), else the bytes of the global layout (csrc/topk_sweep.cu)."""
-    nbytes = ctypes.c_longlong(0)
+def in_neighbour_lists(topi: torch.Tensor):
+    """Each frame's in-neighbour lists of the tables ``topi`` [B, K, N]:
+    ``in_off`` [B, N + 1] int32 offsets and ``in_ent`` [B, K N] int32
+    entries q = k N + i, grouped by j = topi[f, k, i] (site j's entries at
+    ``in_ent[f, in_off[f, j]:in_off[f, j + 1]]``), in increasing q within
+    each j. K4 carries its per-slot rate sums across a frame's events
+    through them. Built on the tensors' device with no host wait: a stable
+    argsort, a count per site (``scatter_add_``: ``torch.bincount`` reads
+    its input's maximum on the host), a cumsum."""
+    B, K, N = topi.shape
+    flat = topi.reshape(B, K * N).to(torch.int32)
+    ent = torch.argsort(flat, dim=1, stable=True).to(torch.int32)
+    off = torch.zeros((B, N + 1), dtype=torch.int32, device=topi.device)
+    off[:, 1:].scatter_add_(1, flat.long(), torch.ones_like(flat))
+    return torch.cumsum(off, dim=1, dtype=torch.int32), ent
+
+
+def sweep_plan(R: int, N: int, K: int, blend: bool, device: torch.device) -> dict:
+    """K4's launch plan at (R, N, K, blend) on ``device``
+    (csrc/topk_sweep.cu): warps per block, layout (0 shared, 1 global),
+    whether the frame's tables are staged whole in shared memory, the tile
+    of the staged first evaluation (0: none), the dynamic shared memory and
+    the global scratch in bytes (0 in the shared layout)."""
+    out = (ctypes.c_longlong * 6)()
     build.check(
-        build.library().cmdlmc_topk_sweep_scratch(
-            int(R), int(N), int(K), int(bool(blend)), device.index or 0,
-            ctypes.byref(nbytes)),
-        "topk_sweep scratch plan",
+        build.library().cmdlmc_topk_sweep_plan(
+            int(R), int(N), int(K), int(bool(blend)), device.index or 0, out),
+        "topk_sweep plan",
     )
-    return nbytes.value
+    keys = ("warps", "layout", "tables_in_smem", "stage_tile", "smem", "scratch")
+    return dict(zip(keys, (int(v) for v in out)))
 
 
 def topk_sweep(
@@ -564,13 +583,14 @@ def topk_sweep(
         s_out.copy_(s_in)
         prev_out.copy_(prev_in)
     else:
-        scratch_bytes = sweep_scratch_bytes(R, N, K, blend, dev)
+        scratch_bytes = sweep_plan(R, N, K, blend, dev)["scratch"]
         scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8, device=dev)
+        lists = in_neighbour_lists(tables[2])
         lib = build.library()
         topk_sweep.launches += 1
         build.check(
             lib.cmdlmc_topk_sweep(
-                *(t.data_ptr() for t in tables), prev_in.data_ptr(),
+                *(t.data_ptr() for t in (*tables, *lists)), prev_in.data_ptr(),
                 s_in.data_ptr(), prev_out.data_ptr(), s_out.data_ptr(),
                 *(t.data_ptr() for t in state[:6]), u2.data_ptr(),
                 evc2.data_ptr(), trunc.data_ptr(), scratch.data_ptr(),

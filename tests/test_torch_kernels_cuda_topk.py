@@ -1,6 +1,7 @@
 """Top-K kernel checks that need the card (marked ``cuda``; they skip
-without one): K5 and K4 against their plain versions, K4's refusals and its
-global-memory layout, K6 against K5. ``chip_smoke.py`` holds each kernel
+without one): K5 and K4 against their plain versions, K4's refusals, its
+global-memory layout, its determinism, a slot that empties and 16 events a
+frame, K6 against K5. ``chip_smoke.py`` holds each kernel
 against its plain version at the deployments' shapes. On a machine with a
 GPU and no jax:
 
@@ -33,7 +34,8 @@ def test_k5_matches_plain(dev):
     assert knn.knn_block_tables.launches >= 3
 
 
-def _k4_setup(dev, name, n=64, p=24, r=256, frames=12, box=10.0):
+def _k4_setup(dev, name, n=64, p=24, r=256, frames=12, box=10.0, cutoff=3.0,
+              buffer=2.0, max_events=4):
     """A TopKPairRates (k=8) or blended HydroniumRates (k=4) model over the
     _setup trajectory, its stage-1 tables, and the replica state in the
     sweep's order (tlast_site from the state)."""
@@ -45,10 +47,10 @@ def _k4_setup(dev, name, n=64, p=24, r=256, frames=12, box=10.0):
     cell = Cell.cubic([box] * 3, device=dev)
     law = Fermi(a=0.2, b=2.3, c=0.1).to(dev)
     if name == "topk":
-        model = TopKPairRates(cell, law, 3.0, 2.0, k=8)
+        model = TopKPairRates(cell, law, cutoff, buffer, k=8)
     else:
         model = HydroniumRates(
-            cell, law, 3.0, 2.0,
+            cell, law, cutoff, buffer,
             transform=ReLUTransformation(a=0.5, b=2.2, d0=2.2, left_bound=2.0,
                                          right_bound=3.3).to(dev),
             interpolator=DistanceInterpolator(relaxation_time=2.0).to(dev), k=4)
@@ -56,8 +58,8 @@ def _k4_setup(dev, name, n=64, p=24, r=256, frames=12, box=10.0):
     tables = ts.topk_tables(model, pos, precompute_law=not blend)
     prev, s, occ, labels, sites, tlast, db, u, evc = state
     tls = ts.entry_tlast_site(occ, labels, tlast)
-    kw = dict(orthorhombic=True, kind=0, tile=64, max_events=4, dt=0.5, seed=9,
-              blend=blend)
+    kw = dict(orthorhombic=True, kind=0, tile=64, max_events=max_events, dt=0.5,
+              seed=9, blend=blend)
     return model, pos, tables, [prev, s, occ, labels, sites, tlast, tls, db, u, evc], kw
 
 
@@ -115,16 +117,70 @@ def test_k4_global_layout_matches_plain(dev, name):
     model, pos, tables, state, kw = _k4_setup(
         dev, name, n=n, p=5616, r=r, frames=3, box=10.0 * (n / 64) ** (1 / 3))
     k = tables[0].shape[1]
-    assert ts.sweep_scratch_bytes(256, 64, k, kw["blend"], dev) == 0
-    assert ts.sweep_scratch_bytes(r, n, k, kw["blend"], dev) > 0
+    assert ts.sweep_plan(256, 64, k, kw["blend"], dev)["scratch"] == 0
+    plan = ts.sweep_plan(r, n, k, kw["blend"], dev)
+    assert plan["scratch"] > 0 and plan["stage_tile"] > 0
+    _hold_to_plain(model, pos, tables, state, kw)
+
+
+def _hold_to_plain(model, pos, tables, state, kw):
+    """K4 against its plain version: at most one replica parting, events
+    fired; returns the plain version's output."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
     args = (pos, *tables, *state, ts.law_params8(model), 0, model.geometry)
     got = ts.topk_sweep(*args, **kw)
     want = ts.topk_sweep_reference(*args, **kw)
-    same = torch.ones(r, dtype=torch.bool, device=dev)
+    r = state[2].shape[0]
+    same = torch.ones(r, dtype=torch.bool, device=pos.device)
     for key in ("occ", "labels", "sites", "ev_count", "trunc"):
         same &= (got[key] == want[key]).reshape(r, -1).all(dim=1)
     assert int((~same).sum()) <= 1
     assert int(want["ev_count"].sum()) > 0
+    torch.testing.assert_close(got["u_rem"][same], want["u_rem"][same],
+                               rtol=1e-5, atol=1e-5)
+    return want
+
+
+def test_k4_two_launches_give_the_same_bits(dev):
+    """No float atomics: the carried sums, and every output, repeat bit for
+    bit from launch to launch."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    model, pos, tables, state, kw = _k4_setup(dev, "topk")
+    args = (pos, *tables, *state, ts.law_params8(model), 0, model.geometry)
+    first, second = ts.topk_sweep(*args, **kw), ts.topk_sweep(*args, **kw)
+    for key, a in first.items():
+        b = second[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), key
+
+
+def test_k4_slot_that_empties(dev):
+    """Three protons among sites with few neighbours in range (many slots
+    exhausted): moves take slots' last positive candidates away, and K4,
+    whose carried sum of such a slot must be +0 exactly, agrees with its
+    plain version."""
+    model, pos, tables, state, kw = _k4_setup(dev, "topk", p=3, cutoff=1.6,
+                                              buffer=0.4)
+    valid = tables[0] < 1.0e5  # [B, K, N]
+    assert bool((valid[:, 0] & ~valid[:, -1]).any())  # sites with exhausted slots
+    want = _hold_to_plain(model, pos, tables, state, kw)
+    assert int(want["ev_count"].sum() - state[9].sum()) > 100
+
+
+def test_k4_sixteen_events_a_frame_match_plain(dev):
+    """max_events = 16: the carried sums take up to 16 rounded deltas a
+    frame (more events fire than under a budget of 4), and K4 still agrees
+    with its plain version."""
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    model, pos, tables, state, kw = _k4_setup(dev, "topk", max_events=16)
+    want = _hold_to_plain(model, pos, tables, state, kw)
+    four = ts.topk_sweep_reference(pos, *tables, *state, ts.law_params8(model), 0,
+                                   model.geometry, **{**kw, "max_events": 4})
+    assert int(want["ev_count"].sum()) > int(four["ev_count"].sum())
 
 
 def test_k6_equals_k5(dev):
