@@ -24,10 +24,14 @@ nonzero without the final ``ok`` line:
    on the same state, at 2-16 warps per block, and the two routes timed at
    8, 16 and 128 RNG tiles;
 7. K5 (K-nearest tables) against its plain version at [B=100 and 256,
-   N=144] and [B=64, N=4608], k=8, timed there; K6 (the same tables over a
+   N=144] (k=8, and k=4 for hydronium; the full scan) and [B=64, N=4608]
+   (k=8; the cell route), timed there with the bound from the pairs the
+   route needs beside the all-pairs count; K6 (the same tables over a
    sparse plan) against its plain version and against K5 bit for bit at
    the box x4 path's rebuild launch [1, 9216], at [64, 9216] and, with the
-   plan forced, [64, 4608], all timed there;
+   plan forced, [64, 4608], all timed there; at every K5 shape here and in
+   9 the tables equal the parent K5's bit for bit (PARENT_K5_DIGESTS, the
+   SHA-256 recorded from the K5 before the cell route);
 8. K4 (top-K event loop) against its plain version: TopKPairRates k=8 and
    HydroniumRates k=4 (ReLU, relaxation time 20, the blend in the loop) at
    R=4096, B=100, N=144; law kinds 1-3, a triclinic cell, 16 events a frame
@@ -36,15 +40,18 @@ nonzero without the final ``ok`` line:
    in global scratch); timed at R=4096 with its in-neighbour lists' build,
    the events per replica-frame and the bound from the least work beside
    the count of a full evaluation per event; with ``--k4-before CSRC`` also
-   the K4 of an earlier tree's csrc/ (the parent's) and this K4 without its
-   staged first evaluation, timed in turns with it;
+   the parent's K4 (from the parent's csrc/) and this K4 without its staged
+   first evaluation, timed in turns with it;
 9. the water tables (K5 with no cutoff, then the transform) bit for bit
-   against their plain version at [256, 216] and [256, 1728]; K7 (the water
-   event loop) against its plain version at the water path's shape (N=216,
-   R=8192, RNG tiles of 256, the linear transform, keep_last,
+   against their plain version at [256, 216] (the full scan) and
+   [256, 1728] (the verified cell search); K7 (the water event loop and its
+   prefix pre-pass) against its plain version at the water path's shape
+   (N=216, R=8192, RNG tiles of 256, the linear transform, keep_last,
    check_from_old, relaxation 10, d_OH 0.3) over 100 frames, and for the
    ramp, the 57-point table, n_atoms = 4 and a waiting time at R=1024,
-   B=32; K7 timed at its path's launch (R=8192, B=256) at N=216 and N=1728;
+   B=32; K7 timed at its path's launch (R=8192, B=256) at N=216 and N=1728
+   at 32 to 256 threads per block in turns; every K7 output at every case
+   equal to the parent K7's bit for bit (PARENT_K7_DIGESTS);
 10. end to end through ``driver.run_from_config`` on synthetic trajectories:
    the ``bench.py`` deployment (144 sites, 96 protons, 256-frame blocks) at
    16384 replicas (stage 1 + K1) and at 1024 (K3), the angle deployment of
@@ -66,10 +73,16 @@ nonzero without the final ``ok`` line:
 12. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
    rates), the two top-K supercell runs and the water N=216 run traced
    with torch.profiler (device busy and idle time, each kernel's share, the
-   Verlet epilogue's and that of K4's in-neighbour lists; for each run the idle time before the first
+   Verlet epilogue's, that of K4's in-neighbour lists and that of torch's
+   sort and cumsum of K5's cell lists; for each run the idle time before the first
    launch of its main kernel apart from the gaps between launches, and the
    host ranges that fill those gaps), and the host's xyz parse of the dense
    and water trajectories timed alone.
+
+With ``--k4-before CSRC`` (a copy of the parent tree's csrc/, e.g. from
+``git archive``) the parent's K4, K5 and K7 are built beside this tree's,
+held to them bit for bit in this run (their digests printed, for
+PARENT_K5_DIGESTS and PARENT_K7_DIGESTS) and timed in turns with them.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the end-to-end run of its path, its error against the plain
@@ -83,9 +96,11 @@ checkout.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1086,32 +1101,359 @@ def _knn_hold(what, pos, box3, gd, gi, wd, wi):
     return len(parted), err
 
 
-def phase_k5(dev):
-    """K5 against knn_block_tables_reference at k=8: at the top-K path's
-    launch shape [PRINT_FREQ, 144], at [256, 144] and at the supercell's
-    [64, 4608]. Indices equal, except where the two candidates' distances lie
-    within an ulp of each other; distances within an ulp. Timed at each
-    shape."""
+# The launch functions of the parent's K5 and K7 (before the cell route and
+# the prefix table), as ops/build.py declared them, for --k4-before.
+PARENT_KNN_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int])
+PARENT_WATER_SIGNATURE = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 14 + [ctypes.c_float] * 5
+                          + [ctypes.c_uint32, ctypes.POINTER(ctypes.c_float),
+                             ctypes.c_void_p, ctypes.c_int])
+
+
+def _parent_knn(lib, pos, box3, cutbuf, k):
+    """The parent's K5 (one thread per column, a 16-entry list, every row)
+    launched as its wrapper launched it."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
+
+    B, N, _ = pos.shape
+    topd = torch.empty((B, k, N), dtype=torch.float32, device=pos.device)
+    topi = torch.empty((B, k, N), dtype=torch.int32, device=pos.device)
+    build.check(lib.cmdlmc_knn_tables(
+        pos.data_ptr(), B, N, int(k), *(float(x) for x in box3),
+        float(np.float32(cutbuf)), topd.data_ptr(), topi.data_ptr(),
+        build.stream_of(pos), pos.device.index or 0), "parent K5")
+    return topd, topi
+
+
+def _digest(tensors: dict) -> dict:
+    """SHA-256 of each tensor's bytes."""
+    return {k: hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, t in tensors.items()}
+
+
+def _held_to_parent(tag, label, got: dict, recorded: dict, parent=None):
+    """Hold a kernel's outputs to the parent kernel's: to `parent` (its
+    outputs on the same inputs in this run, when --k4-before built it) and
+    to the digests `recorded` from it (PARENT_K5_DIGESTS,
+    PARENT_K7_DIGESTS), bit for bit. Prints the parent's digests where it
+    ran, for recording; fails where neither is there."""
+    mine = _digest(got)
+    want = recorded.get(label)
+    if parent is not None:
+        theirs = _digest(parent)
+        say(f"[{tag}] parent digests {label!r}: {json.dumps(theirs)}")
+        differ = [k for k in mine if mine[k] != theirs[k]]
+        if differ:
+            raise AssertionError(f"{tag} {label}: {differ} differ from the parent's")
+    if want is not None:
+        differ = [k for k in mine if mine[k] != want.get(k)]
+        if differ:
+            raise AssertionError(f"{tag} {label}: {differ} differ from the recorded "
+                                 "parent digests")
+    elif parent is None:
+        raise AssertionError(f"{tag} {label}: no recorded parent digest")
+    against = [w for w, there in (("the recorded digests", want is not None),
+                                  ("its run here", parent is not None)) if there]
+    say(f"[{tag}] {label}: all {len(mine)} outputs equal the parent kernel's bit for "
+        f"bit ({' and '.join(against)})")
+
+
+# SHA-256 of K5's tables and K7's outputs at every shape and case chip_smoke
+# holds them, recorded on an NVIDIA H100 80GB HBM3 from the kernels as they
+# were before the cell route and the prefix table (K5 one thread per column
+# over every row with a 16-entry list; K7 a copy of the prefix sum in each
+# block's shared memory, advanced every frame). The kernels must reproduce
+# them bit for bit.
+PARENT_K5_DIGESTS = {
+    "[100,144] k=8": {
+        "topd": "9e3deba8c27566230e1a2e3253b6c34dacab6a84c98283acb8886217c902efa4",
+        "topi": "14a544d7717f73ec1dca1ffd0ffd6e5566ce34340626302a1de28cb98c286904",
+    },
+    "[100,144] k=4": {
+        "topd": "72563b41b1da96711f994c81bb83d1b34abc48799789738905a0bd7498e1445a",
+        "topi": "da6e374e773c3285f38c7ddfba4cc44669656c4a6e95494203e1f12636db2cc1",
+    },
+    "[256,144] k=8": {
+        "topd": "d3dfde4518001cf1a43ad41e744039117f13712c74359b079d0b7dab8c1e4c5d",
+        "topi": "08de7ad236132ad42a0bfd0e02031a7df4eabf55eab19a48f50a2fbfabf71bec",
+    },
+    "[64,4608] k=8": {
+        "topd": "e412ef521348795e483a0d28056b3ebe57d10f4c7c2cecbe6ce55b8d66fd45d8",
+        "topi": "4314d070438bcc639fa6346b9b2b53575b779118ba252526aa537bcf41be8c05",
+    },
+    "[1,9216] k=8": {
+        "topd": "d0eab025d81f053f28e79407f8d84d7502e4c450afab6c5ba31d7fa0458ad1b5",
+        "topi": "99dbc4af9d2d50181bd902dbaf6cba39259859836825447eedbb5b88973b3c58",
+    },
+    "[64,9216] k=8": {
+        "topd": "60f09fd523a6374be1315f17f35b5d7e52022a873502a95cc3ba4652583efc15",
+        "topi": "ddfb394169fdb964f24b47bbdf4671a28c4de7cbfa986ace7b72690966fe0c1c",
+    },
+    "[256,216] k=3 no cutoff": {
+        "topd": "ae00f14a830d6f355a1671a42a5a6d24fafebf37e89495b37a1eb24a2d3e8a64",
+        "topi": "116ec4f8afbb98da4831ecb1ab3504a506bd2c351fe8060ab09372e57f3a26d5",
+    },
+    "[256,1728] k=3 no cutoff": {
+        "topd": "249d9be50f7af6a80f2c40ab12f28c5a4aa6b616f67d342ccf9f54e891950f88",
+        "topi": "a9415a311943c78ca8d880a66988f3925ce20a7252c3066572f5a20205839355",
+    },
+}
+PARENT_K7_DIGESTS = {
+    "linear n_atoms=3 R=8192 B=100 N=216 TR=256 {'relax': 10, 'waiting': 0, 'keep_last': True, 'check_old': True}": {
+        "site": "9a6e66e9752c92c22edd3869e74a8043006cd8c2812183fb67d408208bf24b29",
+        "last": "a08b93f7c5a658686f7ae3d0b5d538d51c003b963e7ff5f7ac46e217cc039a37",
+        "fsj": "9ceeb42198174f2177c6262d444cba645435158e43d4b5f2e044794c3906d03a",
+        "wait": "c35020473aed1b4642cd726cad727b63fff2824ad68cedd7ffb73c7cbd890479",
+        "jumps": "100f71c9ea6ea078f8bc3726242c14a3cf8a5e0b799d364c28eed8a9cfa2069f",
+        "ev_count": "100f71c9ea6ea078f8bc3726242c14a3cf8a5e0b799d364c28eed8a9cfa2069f",
+        "u_rem": "ed698e2be44ef79fc8c4123fb8631885118acb910a88602ef9d503291a03c84f",
+        "corr": "a02b8efba9344cd9736f2aefdbaffc291b2e68ca14613681476b3d470d428262",
+        "disp_base": "5f0b61d67755e0751bcc25ef4f825926697b0057d3c6cf41ebd3c44336334c0e",
+        "site_disp": "605fd38004acb8f0a0d22cfac0484796f2d7dee35e46d3874e7205e159dc1345",
+        "prev_pos": "36131c36d546f586e5228954d683a35d61d8d32160036a651ab4097dc2290834",
+        "trunc": "c35020473aed1b4642cd726cad727b63fff2824ad68cedd7ffb73c7cbd890479",
+        "site_trace": "fcde8d430e0f5379d3b4effe8751d8fb3958bde37aa47176337325da3b36750e",
+    },
+    "ramp n_atoms=3 R=1024 B=32 N=216 TR=256 {'relax': 4, 'waiting': 3, 'keep_last': True, 'check_old': True}": {
+        "site": "e2649ac6902e225a9592fafff88f10b5d7a34d40c7be92d9374a7ae186267376",
+        "last": "d4179cbebdc5c580a1a2cb3166c102a71ae85eb8382bff8c0a7dc5d3669722a3",
+        "fsj": "672e3a5e4997dedae162b218b4c3fd7323c668218a03a38ef65314a4d38b7d47",
+        "wait": "ac64f315af03e37d142c083e959888536755b1e96747c182201ec5af2e64bae3",
+        "jumps": "1be8c4d524c8d2567f57bebb9e8ff9c35910a30187c0cf036e2af56efc21b24a",
+        "ev_count": "1be8c4d524c8d2567f57bebb9e8ff9c35910a30187c0cf036e2af56efc21b24a",
+        "u_rem": "0ecf2f09e9af9e3735670a3d69dc40709e8bada85f505d7c07d5ccd01b841e9e",
+        "corr": "066a9cc9c67d331b673ab6f7a01bbc2f823e60595c181658ffc13fb4f0ee6006",
+        "disp_base": "7a53e16ef10af0cfa93e8b9bf5ce9486c476dcf2b280f669f67ceee976209b99",
+        "site_disp": "e99863bb13b84c973988df2699aa9c7069c2bf8f85a3986f3a85917522d7790f",
+        "prev_pos": "ebe0eb8bde43fb1b5df1f724fcf82083a79173fa922fbdaf4212f3f71d387fef",
+        "trunc": "ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7",
+        "site_trace": "ac424bebc363828a4b5c4c68d94551c15d0789dc764a1ad96f198be3fa18e76c",
+    },
+    "interp n_atoms=3 R=1024 B=32 N=216 TR=256 {'relax': 10, 'waiting': 0, 'keep_last': True, 'check_old': True}": {
+        "site": "b3706cc5277e18fa32e523d75b1362413242e8a6e14df61bf0020f8a8bc900d0",
+        "last": "afc2d2840898a43afed05f6c07ac26339538c622c3ac8aa18f9e3a3cdb14de30",
+        "fsj": "d734df4978aa67116186a57fce15789cd5e5026242d290e97a9588506c70c6e8",
+        "wait": "ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7",
+        "jumps": "1d417a80c8c24df7a4be88fbb5f929f90a200b6dadf957448ddefb33346fab6f",
+        "ev_count": "1d417a80c8c24df7a4be88fbb5f929f90a200b6dadf957448ddefb33346fab6f",
+        "u_rem": "d9bbfe0528e6e21fcc0f3dadbda917f3cb7a8539b1d914a26b95bb516975a510",
+        "corr": "57c8061f1a6220c0c5e18c3b38820973608ccc946b0f3f88a670923c8e7ae541",
+        "disp_base": "144e846f89c2f91718422cea2c925a9faf42a098aa4d8327e3db679a2a459db6",
+        "site_disp": "e99863bb13b84c973988df2699aa9c7069c2bf8f85a3986f3a85917522d7790f",
+        "prev_pos": "ebe0eb8bde43fb1b5df1f724fcf82083a79173fa922fbdaf4212f3f71d387fef",
+        "trunc": "ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7",
+        "site_trace": "e064a385efcf9c87b58806a019af573380c64d602474752eb51495db43faae79",
+    },
+    "linear n_atoms=4 R=1024 B=32 N=216 TR=256 {'relax': 10, 'waiting': 0, 'keep_last': True, 'check_old': True}": {
+        "site": "d12891c055e9b2b4083101b84ce055c606ab842b897437e24911ab6a7e439376",
+        "last": "b123a46d6a28e96b0ff3a31dffe1de68e186153661238879ed65c369f38a38ca",
+        "fsj": "e97b0326e9bccdb8f6808bda71fbcc342335b8d6438135888e008d8192171b62",
+        "wait": "ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7",
+        "jumps": "2c35396c53b114f7146d2a7ede48e73d570f9cf4cc8deae3a2f37516b3bd24c4",
+        "ev_count": "2c35396c53b114f7146d2a7ede48e73d570f9cf4cc8deae3a2f37516b3bd24c4",
+        "u_rem": "b60d57fcc94f3852c0c56fe6bc0fd24fd4dc1fb4dfb883e2cda18058186410a2",
+        "corr": "f6e7af73910b766533072c4005fe0095fdf9c6019e092c6eb618c7b7750aca95",
+        "disp_base": "81b9f04fa2383df0fb285f7f15f9512e2c00ee413e389b44c81b5c3d8e189446",
+        "site_disp": "e99863bb13b84c973988df2699aa9c7069c2bf8f85a3986f3a85917522d7790f",
+        "prev_pos": "ebe0eb8bde43fb1b5df1f724fcf82083a79173fa922fbdaf4212f3f71d387fef",
+        "trunc": "ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7",
+        "site_trace": "44a86a675abe3880ea6624b634cf00d91798ce63e0f124b745311d2e73e839d0",
+    },
+    "none n_atoms=3 R=1024 B=32 N=216 TR=256 {'relax': 10, 'waiting': 3, 'keep_last': True, 'check_old': False}": {
+        "site": "455e64ec1dbeb1e67efd6517759acce2dc7efea5f12b3987fc1c79aa566ee7a0",
+        "last": "c4817074e7f37341b28358671acfc0a4180e3f05608b1d9b0e1052652c1e65f3",
+        "fsj": "719c2a2bc8dc7704c7b93073397b12bc73d77688275ae400f50646351f2e0cd9",
+        "wait": "16452ed466358c6aaa97520da88dedf3c310513088efa235ff7ca96b5ec39060",
+        "jumps": "c1e41cebdd2a71717681d0b5926b031eaac5e4fa1ba8587e3d1ff80b88dbdc35",
+        "ev_count": "c1e41cebdd2a71717681d0b5926b031eaac5e4fa1ba8587e3d1ff80b88dbdc35",
+        "u_rem": "4a38a6fd36075b3f0b7ff4dd90862b398e955e0b2eaa38476716e9f036a3b816",
+        "corr": "97868963e0920c246a4138ae99e94d2bba20248529dc693f6a4c502025e27714",
+        "disp_base": "cfff6a8d8f36f53986d9e6ceca665a01675cd7e6ecaa6e7dce2db261c84a00fb",
+        "site_disp": "e99863bb13b84c973988df2699aa9c7069c2bf8f85a3986f3a85917522d7790f",
+        "prev_pos": "ebe0eb8bde43fb1b5df1f724fcf82083a79173fa922fbdaf4212f3f71d387fef",
+        "trunc": "ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7",
+        "site_trace": "e064a385efcf9c87b58806a019af573380c64d602474752eb51495db43faae79",
+    },
+    "linear R=8192 B=256 N=216 (the path's launch)": {
+        "site": "ce0561a478d2e4e176d0dea76913f654e59cbfb27fb0ed83ad78f598f0e7845f",
+        "last": "352d4e655b92c409914c5fd21d5ef880814b223a69f5433a201db049c55088c0",
+        "fsj": "4700c81822dc7e17db8e53512b29ebf79437ff12efe269439763cd02f29084d1",
+        "wait": "c35020473aed1b4642cd726cad727b63fff2824ad68cedd7ffb73c7cbd890479",
+        "jumps": "41c91118bf9171b0c4157e89472b0e75346e22af269f2e9ad8e89761029d869f",
+        "ev_count": "41c91118bf9171b0c4157e89472b0e75346e22af269f2e9ad8e89761029d869f",
+        "u_rem": "3ca5ef230a178485d10d0fedf38657b48dfd23cfc185b1cb90a4ba13663ef32f",
+        "corr": "74f372418d03607337dc58f528bad4575dd282c6c0bccf0ee7a42f6963ab7a2d",
+        "disp_base": "b6f2ca9501a3798ca3e666474eaefccd8d7f3a291e8b970ae47308f616d5520d",
+        "site_disp": "94b5600cef2c7286b41adb86c8b58c82435539713de76289d0d7a78bec470c0a",
+        "prev_pos": "297cd605c501dc70f59b0752ea8cc6c632a78d5f7641b50160503e85f53fe897",
+        "trunc": "a474c34b3a9b50b1617d0b15a342cdf958f21ab4bcc21635462b5e37a92736fa",
+        "site_trace": "4b1ab127d4b54a1ad8cfb3837cb39a62259ef2f94b7a58fd881e5610b730dda1",
+    },
+    "interp R=8192 B=256 N=1728 (the path's launch)": {
+        "site": "6e4315f9c91083c7b6a9158ee4d2c7be80506fe5f77f41bcc1f0ef09cfec3b84",
+        "last": "484956ec46a418b99846b640877a1c08f4be2328b407f4f8f81a52d09870bf54",
+        "fsj": "3e28d6413d562f3f9352738ed16f58f1309136bf49487e5d3fb8f6fe816beccd",
+        "wait": "c35020473aed1b4642cd726cad727b63fff2824ad68cedd7ffb73c7cbd890479",
+        "jumps": "f47f6c84a019bcff119a0b0eeb850313c160f806b5004a6b0ec26262830832b1",
+        "ev_count": "f47f6c84a019bcff119a0b0eeb850313c160f806b5004a6b0ec26262830832b1",
+        "u_rem": "9440929a10d3cc08c08e8902161a5164d5b6e481a327ddd677ee00c10f63b859",
+        "corr": "773347c10a913dd0434c32f84c3ccbdb557db8701ed8d7e4148a7337a634c812",
+        "disp_base": "759e14a23909f51f5d0dc3674fe087991411920a48307e40c25c226aad0e864c",
+        "site_disp": "674573f1a0e2d03b776fa875d7d9d75dd6452d746c5519a9de46cf03771939e3",
+        "prev_pos": "79b7966443b8a9d516772b520d2f7bd4cf0520e193a6b1e3c1ad76cd7ed33097",
+        "trunc": "8d59d68c70e96cd40ce17be4a1b5e323edc8fed734b86203fdc4d7be2c22d181",
+        "site_trace": "fbf723ba33ffe0f57e2da7739ee7d8d3bb758166569e26a710ea11cc8c71cf24",
+    },
+}
+
+# operations to bin one site: per axis a division, a floor, a multiply and
+# a subtract to wrap it, a multiply and a floor for its cell; the cell id
+# (two multiply-adds) and a counting sort's count and place
+BIN_OPS = 22.0
+
+
+def knn_cell_ops(pos, box3, k, grid, topd=None) -> float:
+    """K5's least operations on the cell route over a block [B, N, 3]: each
+    site binned, and each unordered pair in neighbouring cells (the pairs
+    that cells of width cutoff + buffer can hold in range) counted as
+    knn_ops counts a pair (a distance and a test, a compare per ordered
+    pair). With the verified search (`topd` given: no cutoff) add every row
+    of each column that the check sends to a full scan (its k-th distance
+    not below its bound)."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import knn_tables as knn
+
+    B, N, _ = pos.shape
+    cl = knn.cell_lists(pos, box3, grid, verify=topd is not None)
+    counts = (cl.start[:, 1:] - cl.start[:, :-1]).double().reshape(B, *grid)
+    pairs = float((counts * (counts - 1) / 2).sum())
+    offsets = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)
+               if (a, b, c) > (0, 0, 0)]  # 13: each neighbouring pair of cells once
+    for off in offsets:
+        pairs += float((counts * counts.roll(off, dims=(1, 2, 3))).sum())
+    ops = pairs * (PAIRWISE_OPS + 1) + 2 * pairs + BIN_OPS * B * N
+    if topd is not None:
+        rescans = int((~(topd[:, k - 1] < cl.thr)).sum())
+        ops += rescans * (N - 1) * (PAIRWISE_OPS + 2)
+    return ops
+
+
+def _knn_bound(pos, box3, cutbuf, k, topd) -> tuple:
+    """(the bound of this K5 launch, the all-pairs bound, the route):
+    knn_cell_ops on the cell route, knn_ops on the full scan."""
+    from cmdlmc_tpu_torch.ops import knn_tables as knn
+
+    B, N, _ = pos.shape
+    nbytes = 4.0 * B * N * 3 + 8.0 * B * k * N
+    grid = knn.cell_grid(N, box3, cutbuf, k)
+    every = bound(B * knn_ops(N), nbytes)
+    if grid is None:
+        return every, every, "full scan"
+    ops = knn_cell_ops(pos, box3, k, grid,
+                       None if math.isfinite(float(cutbuf)) else topd)
+    return bound(ops, nbytes), every, f"cells {grid}"
+
+
+def _k5_in_turns(libs, pos, box3, cutbuf, k, reps=20):
+    """This K5 and the parent's timed in turns (parent, this, this, parent)
+    as text, and the parent's tables."""
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
+
+    times = {"parent": [], "this": []}
+    out = None
+    for name in ("parent", "this", "this", "parent"):
+        if name == "parent":
+            ms, out = cuda_ms(lambda: _parent_knn(libs["parent_knn"], pos, box3, cutbuf, k),
+                              reps=reps)
+        else:
+            ms, _ = cuda_ms(lambda: knn_block_tables(pos, box3, cutbuf, k), reps=reps)
+        times[name].append(ms)
+    text = "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+                     for n, ts in times.items())
+    return text, out
+
+
+def _k5_cell_parts(pos, box3, cutbuf, k):
+    """The cell route's parts timed alone, as text: the binning
+    (ops/knn_tables.py::cell_lists: knn_bin_kernel, torch's sort and cumsum)
+    and the cell kernel at 32 to 256 threads per block over those lists (the
+    route's width is ops/knn_tables.py::cell_threads)."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
+    from cmdlmc_tpu_torch.ops import knn_tables as knn
+
+    B, N, _ = pos.shape
+    grid = knn.cell_grid(N, box3, cutbuf, k)
+    verify = not math.isfinite(float(cutbuf))
+    bin_ms, cl = cuda_ms(lambda: knn.cell_lists(pos, box3, grid, verify), reps=20)
+    topd = torch.empty((B, k, N), dtype=torch.float32, device=pos.device)
+    topi = torch.empty((B, k, N), dtype=torch.int32, device=pos.device)
+    lib = build.library()
+    widths = {}
+    for threads in (32, 64, 128, 256):
+        widths[threads], _ = cuda_ms(lambda: build.check(lib.cmdlmc_knn_tables(
+            pos.data_ptr(), B, N, k, *(float(x) for x in box3), float(np.float32(cutbuf)),
+            cl.order.data_ptr(), cl.scell.data_ptr(), cl.start.data_ptr(),
+            None if cl.thr is None else cl.thr.data_ptr(), cl.bad.data_ptr(), *grid,
+            threads, 1, topd.data_ptr(), topi.data_ptr(), build.stream_of(pos),
+            pos.device.index or 0), "knn_tables kernel"), reps=20)
+    return (f"binning {bin_ms:.4f} ms; the cell kernel alone at "
+            + ", ".join(f"{t}: {ms:.4f}" for t, ms in widths.items())
+            + f" ms (the route takes {knn.cell_threads(B * grid[0] * grid[1])})")
+
+
+def _hold_k5(tag, label, pos, box3, cutbuf, k, got, libs):
+    """K5's tables `got` held to the parent K5's bit for bit (its run with
+    --k4-before, timed in turns with this K5, and the recorded digests)."""
+    parent = None
+    if libs:
+        text, (pd, pi) = _k5_in_turns(libs, pos, box3, cutbuf, k)
+        say(f"[{tag}] {label}: K5 in turns: {text}")
+        parent = {"topd": pd, "topi": pi}
+    _held_to_parent(tag, label, {"topd": got[0], "topi": got[1]}, PARENT_K5_DIGESTS,
+                    parent)
+
+
+def phase_k5(dev, libs=None):
+    """K5 against knn_block_tables_reference: at the top-K path's launch
+    shape [PRINT_FREQ, 144] at k=8 and, for the hydronium path, k=4, at
+    [256, 144] and at the supercell's [64, 4608] (the cell route). Indices
+    equal, except where the two candidates' distances lie within an ulp of
+    each other; distances within an ulp. Held bit for bit to the parent K5
+    (recorded digests; with `libs` its run, timed in turns with this one).
+    Timed at each shape, the bound from the pairs the route needs beside the
+    all-pairs count."""
     import torch
 
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables, knn_block_tables_reference
 
-    k, worst, result = TOPK_K, 0.0, {}
-    for b, n, box in ((PRINT_FREQ, N_SITES, BOX), (256, N_SITES, BOX),
-                      (64, SC_SITES, SC_BOX)):
+    worst, result = 0.0, {}
+    for b, n, box, k in ((PRINT_FREQ, N_SITES, BOX, TOPK_K), (PRINT_FREQ, N_SITES, BOX, HYD_K),
+                         (256, N_SITES, BOX, TOPK_K), (64, SC_SITES, SC_BOX, TOPK_K)):
         block = _walk_block(n, b, box) if n == SC_SITES else _jitter_block(n, b, box)
         pos = torch.from_numpy(block).to(dev)
         box3 = (box,) * 3
-        ms, (gd, gi) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=5)
+        label = f"[{b},{n}] k={k}"
+        ms, (gd, gi) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=20)
         plain_ms, (wd, wi) = cuda_ms(
             lambda: knn_block_tables_reference(pos, box3, CUTBUF, k), reps=1)
-        parted, err = _knn_hold(f"K5 [{b},{n}]", pos, box3, gd, gi, wd, wi)
+        parted, err = _knn_hold(f"K5 {label}", pos, box3, gd, gi, wd, wi)
         worst = max(worst, err)
-        b_ = bound(b * knn_ops(n), 4.0 * b * n * 3 + 8.0 * b * k * n)
-        say(f"[k5] [B={b}, N={n}, k={k}]: {parted} index partings (ties within "
-            f"an ulp), max |kernel - plain| distance {err:.3e}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
-        if b == PRINT_FREQ:
+        _hold_k5("k5", label, pos, box3, CUTBUF, k, (gd, gi), libs)
+        b_, every, route = _knn_bound(pos, box3, CUTBUF, k, gd)
+        if route != "full scan":
+            say(f"[k5] {label}: {_k5_cell_parts(pos, box3, CUTBUF, k)}")
+        say(f"[k5] {label} ({route}): {parted} index partings (ties within an ulp), "
+            f"max |kernel - plain| distance {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}; "
+            f"every pair {every['bound_ms']:.5f} ms)")
+        if b == PRINT_FREQ and k == TOPK_K:
             # no single PyTorch call computes it: torch.cdist has no periodic
             # images and torch.topk no first-lowest-index tie rule
             result = {"ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
@@ -1143,14 +1485,15 @@ def knn_sparse_ops(plan, n: int) -> float:
     return float(unordered * (PAIRWISE_OPS + 1) + compares), unordered / (n * (n - 1) / 2)
 
 
-def phase_k6(dev):
+def phase_k6(dev, libs=None):
     """K6 against its plain version (as K5 is held to its own) and against
     K5, which it must equal bit for bit: at the box x4 path's own launch, a
     rebuild's one frame [1, 9216] over that frame's plan; at [64, 9216]
     (bench.py's cell replicated 4 x 4 x 4, the JAX gate open); and at
     [64, 4608] (tools/bench_topk_e2e.py's supercell, the gate closed there,
     so the plan is forced). K6 and K5 timed in turns (K6, K5, K5, K6) at
-    each shape, the host plan timed for each."""
+    each shape, the host plan timed for each; K5 held bit for bit to the
+    parent K5 there (with `libs` also timed in turns with it)."""
     import torch
 
     from cmdlmc_tpu_torch.ops import knn_sparse as kns
@@ -1184,6 +1527,7 @@ def phase_k6(dev):
             f"distances (bit for bit)")
         if n_i or n_d:
             raise AssertionError(f"K6 {shape} differs from K5")
+        _hold_k5("k6", f"[{b},{n}] k={k}", pos, box3, CUTBUF, k, (d5, i5), libs)
         parted, err = _knn_hold(f"K6 {shape}", pos, box3, d6, i6, wd, wi)
         worst = max(worst, err)
         ops, share = knn_sparse_ops(plan, n)
@@ -1192,8 +1536,13 @@ def phase_k6(dev):
             f"tile at most (ratio {plan.ratio:.3f}), {share:.4f} of the unordered "
             f"pairs; host plan {1e3 * plan_s:.1f} ms; {parted} index partings against "
             f"the plain version (ties within an ulp), max distance error {err:.3e}")
+        k5_bound, every, route = _knn_bound(pos, box3, CUTBUF, k, d5)
+        if b == 1:
+            say(f"[k6] {shape}: K5 {_k5_cell_parts(pos, box3, CUTBUF, k)}")
         say(f"[k6] {shape}: K6 {a1:.4f} / {a2:.4f} ms, K5 {b1:.4f} / {b2:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, K6 bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+            f"plain {plain_ms:.3f} ms, K6 bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}); "
+            f"K5 ({route}) bound {k5_bound['bound_ms']:.5f} ms (every pair "
+            f"{every['bound_ms']:.5f} ms)")
         if b == 1:
             # no single PyTorch call computes it (see phase_k5)
             result = {"ms": a1, "plain_ms": plain_ms, **b_, "library_ms": None}
@@ -1414,20 +1763,27 @@ def full_topk_bound(R, B, N, P, K, events, blend, table_bytes) -> dict:
 
 
 def _k4_before_libraries(parent_csrc):
-    """Start the nvcc builds of the K4s timed beside this one: the parent's
-    ``topk_sweep.cu`` from `parent_csrc` (a copy of an earlier tree's
-    csrc/, e.g. from ``git archive``) and this tree's built with
-    -DCMDLMC_TOPK_UNSTAGED (the first evaluation read by every warp from
-    L2). Returns a function that waits for both and loads them."""
-    import ctypes
-
+    """Start the nvcc builds of the kernels timed beside this tree's: the
+    parent's ``topk_sweep.cu`` (K4), ``knn_tables.cu`` (K5) and
+    ``water_sweep.cu`` (K7) from `parent_csrc` (a copy of an earlier tree's
+    csrc/, e.g. from ``git archive``), each on its own, this tree's K4
+    built with -DCMDLMC_TOPK_UNSTAGED (the first evaluation read by every
+    warp from L2) and this tree's K7 with 4 and 16 lanes per replica
+    (-DWATER_LANES). Returns a function that waits for them and loads them."""
     from cmdlmc_tpu_torch.ops import build
 
     out = build.BUILD_DIR / "k4_before"
     out.mkdir(parents=True, exist_ok=True)
-    jobs = {"parent": ([Path(parent_csrc) / "topk_sweep.cu"], []),
+    csrc = Path(parent_csrc)
+    jobs = {"parent": ([csrc / "topk_sweep.cu", csrc / "errors.cu"], []),
+            "parent_knn": ([csrc / "knn_tables.cu"], []),
+            "parent_water": ([csrc / "water_sweep.cu"], []),
             "unstaged": ([build.CSRC_DIR / "topk_sweep.cu", build.CSRC_DIR / "errors.cu"],
                          ["-DCMDLMC_TOPK_UNSTAGED"])}
+    for lanes in (4, 16):  # this K7 with other lanes per replica than its 8
+        jobs[f"water_lanes{lanes}"] = (
+            [build.CSRC_DIR / "water_sweep.cu", build.CSRC_DIR / "errors.cu"],
+            [f"-DWATER_LANES={lanes}"])
     procs = {name: subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, *defs, "-shared", "-o",
          str(out / f"{name}.so"), *map(str, srcs)],
@@ -1439,59 +1795,26 @@ def _k4_before_libraries(parent_csrc):
         for name, proc in procs.items():
             log = proc.communicate()[0]
             if proc.returncode:
-                raise RuntimeError(f"nvcc of the {name} K4 failed:\n{log}")
+                raise RuntimeError(f"nvcc of the {name} kernels failed:\n{log}")
             for line in log.splitlines():
-                if "topk_sweep_kernel" in line or "registers" in line or "spill" in line:
-                    say(f"[k4] {name} build: {line.strip()}")
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    say(f"[before] {name} build: {line.strip()}")
             libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-        parent = libs["parent"]
-        parent.cmdlmc_topk_sweep_scratch.argtypes = [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong)]
-        sig = build._SIGNATURES["cmdlmc_topk_sweep"]
-        parent.cmdlmc_topk_sweep.argtypes = sig[:4] + sig[6:]  # no in-lists
-        for name in ("cmdlmc_topk_sweep", "cmdlmc_topk_sweep_plan"):
-            getattr(libs["unstaged"], name).argtypes = build._SIGNATURES[name]
-        libs["unstaged"].cmdlmc_error_string.argtypes = [ctypes.c_int]
-        libs["unstaged"].cmdlmc_error_string.restype = ctypes.c_char_p
+        for lib in (libs["parent"], libs["unstaged"]):  # this tree's K4 interface
+            for name in ("cmdlmc_topk_sweep", "cmdlmc_topk_sweep_plan"):
+                getattr(lib, name).argtypes = build._SIGNATURES[name]
+            lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
+            lib.cmdlmc_error_string.restype = ctypes.c_char_p
+        for lanes in (4, 16):
+            lib = libs[f"water_lanes{lanes}"]
+            lib.cmdlmc_water_sweep.argtypes = build._SIGNATURES["cmdlmc_water_sweep"]
+            lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
+            lib.cmdlmc_error_string.restype = ctypes.c_char_p
+        libs["parent_knn"].cmdlmc_knn_tables.argtypes = PARENT_KNN_SIGNATURE
+        libs["parent_water"].cmdlmc_water_sweep.argtypes = PARENT_WATER_SIGNATURE
         return libs
 
     return wait
-
-
-def _parent_k4_call(lib, model, pos, tables, state, frame0, **kw):
-    """The parent's K4 launched as its wrapper launched it (the same
-    arguments less the in-neighbour lists), on copies of the state."""
-    import ctypes
-
-    import numpy as np
-    import torch
-
-    from cmdlmc_tpu_torch.ops import build
-    from cmdlmc_tpu_torch.ops import topk_sweep as ts
-
-    B, N, _ = pos.shape
-    K, R, P = tables[0].shape[1], state[2].shape[0], state[4].shape[1]
-    prev, s_in, *rest = state
-    st = [t.clone() for t in rest]
-    s_out, prev_out = torch.empty_like(s_in), torch.empty_like(prev)
-    trunc = torch.empty(R, dtype=torch.int32, device=pos.device)
-    nbytes = ctypes.c_longlong(0)
-    build.check(lib.cmdlmc_topk_sweep_scratch(R, N, K, int(kw["blend"]), 0,
-                                              ctypes.byref(nbytes)), "parent K4 plan")
-    scratch = torch.empty(max(nbytes.value, 1), dtype=torch.uint8, device=pos.device)
-    params = [float(x) for x in ts.law_params8(model).tolist()]
-    build.check(lib.cmdlmc_topk_sweep(
-        *(t.data_ptr() for t in (pos, *tables, prev, s_in, prev_out, s_out, *st,
-                                 trunc, scratch)),
-        scratch.numel(), R, N, P, B, K, kw["tile"], 0, frame0, kw["max_events"],
-        kw["kind"], int(kw["blend"]), int(kw["orthorhombic"]), float(np.float32(kw["dt"])),
-        params[6], kw["seed"], (ctypes.c_float * 6)(*params[:6]),
-        (ctypes.c_float * 18)(*[float(x) for x in model.geometry]),
-        build.stream_of(pos), 0), "parent K4")
-    keys = ("occ", "labels", "sites", "tlast", "tlast_site", "disp_base", "u_rem",
-            "ev_count")
-    return {**dict(zip(keys, st)), "trunc": trunc, "site_disp": s_out,
-            "prev_pos": prev_out}
 
 
 @contextlib.contextmanager
@@ -1512,8 +1835,10 @@ def _k4_before(libs, model, pos, tables, state, frame0, kw, got):
     (parent, this, unstaged, unstaged, this, parent; 3 launches each),
     as text."""
     this = lambda: _k4_call(model, pos, tables, state, frame0, **kw)  # noqa: E731
-    parent = lambda: _parent_k4_call(libs["parent"], model, pos, tables, state,  # noqa: E731
-                                     frame0, **kw)
+
+    def parent():
+        with _library(libs["parent"]):
+            return this()
 
     def unstaged():
         with _library(libs["unstaged"]):
@@ -1533,7 +1858,7 @@ def _k4_before(libs, model, pos, tables, state, frame0, kw, got):
             f"{same['parent']}, unstaged {same['unstaged']} of {state[2].shape[0]})")
 
 
-def phase_k4(dev, before=None):
+def phase_k4(dev, libs=None):
     """K4 against topk_sweep_reference on the same tables: TopKPairRates k=8
     (Fermi) and HydroniumRates k=4 (the blend in the loop) at the top-K
     path's launch shape R=4096, B=100, N=144, timed there; law kinds 1-3, a
@@ -1544,11 +1869,10 @@ def phase_k4(dev, before=None):
     global layout runs (K4's state in global scratch). At each timed shape
     also the in-neighbour lists' build, the events per replica-frame, the
     bound from the least work beside the count of a full evaluation per
-    event and, with `before` (from :func:`_k4_before_libraries`), the
+    event and, with `libs` (from :func:`_k4_before_libraries`), the
     parent's K4 and this one unstaged, timed in turns with it."""
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
 
-    libs = before() if before else None
     worst, result = 0.0, {}
     cases = [("topk", TOPK_REPLICAS, PRINT_FREQ, 0, False),
              ("hydronium", TOPK_REPLICAS, PRINT_FREQ, 0, False),
@@ -1757,41 +2081,96 @@ def _water_kw(**extra):
     return kw
 
 
-def phase_k7(dev):
+def _parent_k7_call(lib, args, kw, threads=256):
+    """The parent's K7 (each block advancing its own copy of the prefix sum
+    in shared memory every frame) launched as its wrapper launched it, on
+    copies of the state."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+
+    pos, topd, topi, resc, prev, sd, *rest = args
+    state, law, frame0, box = rest[:9], rest[9], rest[10], rest[11]
+    B, N, _ = pos.shape
+    R = state[0].shape[0]
+    st = [t.contiguous().clone() for t in state]
+    s_out = sd.contiguous().clone()
+    trunc = torch.zeros(R, dtype=torch.int32, device=pos.device)
+    trace = torch.zeros(B, dtype=torch.int32, device=pos.device)
+    params = [float(x) for x in torch.as_tensor(law, dtype=torch.float32).tolist()]
+    build.check(lib.cmdlmc_water_sweep(
+        *(t.data_ptr() for t in (pos, topd, topi, resc, prev, sd, s_out, *st, trunc, trace)),
+        R, N, B, topd.shape[1], kw["tile"], 0, int(frame0), kw["max_events"], kw["kind"],
+        kw["relax"], kw["waiting"], int(kw["keep_last"]), int(kw["check_old"]), threads,
+        float(np.float32(kw["dt"])), float(np.float32(kw["d_oh"])),
+        *(float(np.float32(x)) for x in box), int(kw["seed"]) & 0xFFFFFFFF,
+        (ctypes.c_float * 6)(*params), build.stream_of(pos), pos.device.index or 0),
+        "parent K7")
+    return {**dict(zip(ws.STATE_KEYS, st)), "site_disp": s_out,
+            "prev_pos": pos[B - 1].clone(), "trunc": trunc, "site_trace": trace}
+
+
+def _k7_lanes(libs, args, kw, got):
+    """This K7 (8 lanes a replica) timed in turns with its builds at 4 and 16
+    lanes (8, 4, 16, 16, 4, 8), each held to its bits, as text."""
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+
+    times = {}
+    for lanes in (8, 4, 16, 16, 4, 8):
+        if lanes == 8:
+            ms, out = cuda_ms(lambda: ws.water_sweep(*args, **kw), reps=3)
+        else:
+            with _library(libs[f"water_lanes{lanes}"]):
+                ms, out = cuda_ms(lambda: ws.water_sweep(*args, **kw), reps=3)
+        if _digest(out) != _digest(got):
+            raise AssertionError(f"K7 at {lanes} lanes a replica differs")
+        times.setdefault(lanes, []).append(ms)
+    return "; ".join(f"{n} lanes " + ", ".join(f"{t:.4f}" for t in v) + " ms"
+                     for n, v in times.items()) + " (the same bits)"
+
+
+def phase_k7(dev, libs=None):
     """The water tables (K5 with no cutoff, then the transform) bit for bit
     against their plain version at [256, 216] and [256, 1728]; K7 against
     water_sweep_reference at the water path's shape (N=216, R=8192, TR=256,
     the linear transform, keep_last, check_from_old, relaxation 10, d_OH
     0.3) over B=100 frames, and smaller cases (R=1024, B=32) for the ramp,
     the 57-point table, n_atoms = 4 and a waiting time of 3; K7 timed at its
-    path's launch, R=8192, B=256, at N=216 and N=1728 (64 to 512 threads
+    path's launch, R=8192, B=256, at N=216 and N=1728 (32 to 256 threads
     per block, in turns), held there too, with its plain version timed
-    once."""
+    once. The tables and every K7 output held bit for bit to the parent
+    kernels' (recorded digests; with `libs` their runs, timed in turns)."""
     import torch
 
     from cmdlmc_tpu_torch.ops import water_sweep as ws
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables, knn_block_tables_reference
 
+    inf = float("inf")
     for n, box, tname in ((W_SITES, W_BOX, "linear"), (W_BIG_SITES, W_BIG_BOX, "interp")):
         pos = torch.from_numpy(_jitter_block(n, W_BLOCK, box)).to(dev)
+        box3 = (box,) * 3
         tkind, tp, tx, ty = _water_transform(tname)
-        ms, got = cuda_ms(lambda: ws.water_tables(pos, (box,) * 3, 3, tkind, tp, tx, ty),
-                          reps=5)
-        knn_ms, _ = cuda_ms(lambda: knn_block_tables(pos, (box,) * 3, float("inf"), 3),
-                            reps=5)
-        plain_ms, (wd, wi) = cuda_ms(
-            lambda: knn_block_tables_reference(pos, (box,) * 3, float("inf"), 3), reps=1)
+        ms, got = cuda_ms(lambda: ws.water_tables(pos, box3, 3, tkind, tp, tx, ty), reps=20)
+        knn_ms, _ = cuda_ms(lambda: knn_block_tables(pos, box3, inf, 3), reps=20)
+        plain_ms, (wd, wi) = cuda_ms(lambda: knn_block_tables_reference(pos, box3, inf, 3),
+                                     reps=1)
         wr = ws.apply_transform(tkind, wd, tp, tx, ty)
         same = (torch.equal(got[1], wi) and torch.equal(got[0].view(torch.int32),
                                                         wd.view(torch.int32))
                 and torch.equal(got[2].view(torch.int32), wr.view(torch.int32)))
-        b_ = bound(W_BLOCK * knn_ops(n), 4.0 * W_BLOCK * n * 3 + 8.0 * W_BLOCK * 3 * n)
-        say(f"[k7] water tables [B={W_BLOCK}, N={n}, k=3, {tname}]: bit for bit "
+        b_, every, route = _knn_bound(pos, box3, inf, 3, got[0])
+        say(f"[k7] water tables [B={W_BLOCK}, N={n}, k=3, {tname}] ({route}): bit for bit "
             f"against the plain version: {same}; K5 {knn_ms:.4f} ms (bound "
-            f"{b_['bound_ms']:.5f} ms, {b_['bound_by']}), with the transform "
-            f"{ms:.4f} ms, K5's plain version {plain_ms:.3f} ms")
+            f"{b_['bound_ms']:.5f} ms, {b_['bound_by']}; every pair "
+            f"{every['bound_ms']:.5f} ms), with the transform {ms:.4f} ms, K5's plain "
+            f"version {plain_ms:.3f} ms")
         if not same:
             raise AssertionError(f"water tables at N={n} differ from their plain version")
+        _hold_k5("k7", f"[{W_BLOCK},{n}] k=3 no cutoff", pos, box3, inf, 3, got[:2], libs)
+        if route != "full scan":
+            say(f"[k7] water tables [{W_BLOCK},{n}]: {_k5_cell_parts(pos, box3, inf, 3)}")
 
     worst = 0.0
     cases = [("linear", 3, {}, W_REPLICAS, 100), ("ramp", 3, {"waiting": 3, "relax": 4},
@@ -1808,6 +2187,8 @@ def phase_k7(dev):
                  f"{ {key: kw[key] for key in ('relax', 'waiting', 'keep_last', 'check_old')} }")
         worst = max(worst, _k7_check(label, pos, tables, state, law, got, want, 0,
                                      (W_BOX,) * 3, kw))
+        parent = _parent_k7_call(libs["parent_water"], args, kw) if libs else None
+        _held_to_parent("k7", label, got, PARENT_K7_DIGESTS, parent)
 
     result = {}
     for n, box, tname in ((W_SITES, W_BOX, "linear"), (W_BIG_SITES, W_BIG_BOX, "interp")):
@@ -1815,7 +2196,7 @@ def phase_k7(dev):
         kw = _water_kw()
         args = (pos, *tables, *state, law, 0, (box,) * 3)
         times = {}
-        for threads in (64, 128, 256, 512, 512, 256, 128, 64):
+        for threads in (32, 64, 128, 256, 256, 128, 64, 32):
             ms, got = cuda_ms(lambda: ws.water_sweep(*args, block_threads=threads, **kw),
                               reps=3)
             times.setdefault(threads, []).append(ms)
@@ -1823,11 +2204,26 @@ def phase_k7(dev):
         label = f"{tname} R={W_REPLICAS} B={W_BLOCK} N={n} (the path's launch)"
         worst = max(worst, _k7_check(label, pos, tables, state, law, got, want, 0,
                                      (box,) * 3, kw))
+        parent = None
+        if libs:
+            turns = {"parent": [], "this": []}
+            for name in ("parent", "this", "this", "parent"):
+                if name == "parent":
+                    t, parent = cuda_ms(lambda: _parent_k7_call(libs["parent_water"], args, kw),
+                                        reps=3)
+                else:
+                    t, _ = cuda_ms(lambda: ws.water_sweep(*args, **kw), reps=3)
+                turns[name].append(t)
+            say(f"[k7] {label}: K7 in turns with the parent's (256 threads per block): "
+                + "; ".join(f"{k_} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
+                            for k_, v in turns.items()))
+            say(f"[k7] {label}: lanes per replica in turns: {_k7_lanes(libs, args, kw, got)}")
+        _held_to_parent("k7", label, got, PARENT_K7_DIGESTS, parent)
         events = int(want["ev_count"].sum() - state[7].sum())
         b = water_bound(W_REPLICAS, W_BLOCK, n, 3, events, int(want["trunc"].sum()))
         ms = min(times[ws.BLOCK_THREADS])
-        say(f"[k7] {label}: kernel {ms:.3f} ms at {ws.BLOCK_THREADS} threads per "
-            f"block (runs {', '.join(f'{t}: ' + ' '.join(f'{x:.3f}' for x in v) for t, v in times.items())} ms), "
+        say(f"[k7] {label}: kernel {ms:.4f} ms at {ws.BLOCK_THREADS} threads per "
+            f"block (runs {', '.join(f'{t}: ' + ' '.join(f'{x:.4f}' for x in v) for t, v in times.items())} ms), "
             f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
             f"{events} events, {int(want['trunc'].sum())} truncated replica-frames)")
         if n == W_SITES:
@@ -2282,6 +2678,7 @@ def _union_us(intervals) -> float:
 
 VERLET_RANGE = "verlet_tables"
 LISTS_RANGE = "k4_in_lists"
+CELLS_RANGE = "k5_cell_lists"
 
 
 def _host_ranges():
@@ -2296,6 +2693,7 @@ def _host_ranges():
     from cmdlmc_tpu_torch.io import stream
     from cmdlmc_tpu_torch.models import water as wm
     from cmdlmc_tpu_torch.ops import knn_sparse as kns
+    from cmdlmc_tpu_torch.ops import knn_tables as knn
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
 
     # the water CLI imports prefetch when it runs, so the patched one (the
@@ -2308,6 +2706,7 @@ def _host_ranges():
             (eng_fused, "run_block_fused", "run_block", "call"),
             (ts, "topk_tables_verlet", VERLET_RANGE, "call"),
             (ts, "in_neighbour_lists", LISTS_RANGE, "call"),
+            (knn, "cell_lists", CELLS_RANGE, "call"),
             (kns, "sparse_plan_for", "sparse_plan", "call"),
             (driver.Simulation, "_fused_post", "fused_post", "call"),
             (driver.Simulation, "_emit_fused", "emit_rows", "gen")]
@@ -2418,7 +2817,9 @@ def _range_device_ms(events, name, exclude=()) -> float:
     (matched by the launch's correlation id), but for those whose names hold
     one of `exclude`: for VERLET_RANGE, less the K-nearest kernels of the
     rebuilds, the Verlet epilogue (the drift tests and the frozen-id
-    distances and gathers); for LISTS_RANGE, K4's in-neighbour lists."""
+    distances and gathers); for LISTS_RANGE, K4's in-neighbour lists; for
+    CELLS_RANGE, less K5's binning kernel, torch's sort and cumsum of K5's
+    cell lists."""
     ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
               if e.get("name") == name and e.get("cat") == "user_annotation"]
     corr = {e["args"]["correlation"] for e in events
@@ -2464,8 +2865,12 @@ def phase_profile(card: str):
         batch_frames=W_BLOCK).iter_batches())
     say(f"[profile] host xyz parse of {frames} frames x {W_SITES} atoms: "
         f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
-    dense = {"K1": "kmc_sweep_streamed_kernel", "K2": "pairwise_kernel"}
-    knn = {"K5": "knn_tables_kernel", "K6": "knn_sparse_kernel"}
+    # each kernel's CUDA kernels by name: K5 is its full scan, its cell
+    # route and that route's binning kernel; K7 its prefix pre-pass, its
+    # packing of the tables and its loop
+    k5 = ("knn_full_kernel", "knn_cells_kernel", "knn_bin_kernel")
+    dense = {"K1": ("kmc_sweep_streamed_kernel",), "K2": ("pairwise_kernel",)}
+    knn = {"K5": k5, "K6": ("knn_sparse_kernel",)}
     fresh = write_inputs(WORK, frames=1024, replicas=REPLICAS)
     runs = [("fresh, host-sized lists", fresh, dense), ("fresh", fresh, dense),
             ("fresh again", fresh, dense),
@@ -2474,10 +2879,11 @@ def phase_profile(card: str):
              dense),
             ("supercell", write_inputs(WORK, frames=512, replicas=SC_REPLICAS,
                                        topk="supercell"),
-             {"K4": "topk_sweep_kernel", "K5": "knn_tables_kernel"}),
+             {"K4": ("topk_sweep_kernel",), "K5": k5}),
             ("box4", write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4"),
-             {"K4": "topk_sweep_kernel", **knn}),
-            ("water", water_cfg, {"K7": "water_sweep_kernel", "K5": "knn_tables_kernel"})]
+             {"K4": ("topk_sweep_kernel",), **knn}),
+            ("water", water_cfg, {"K7": ("water_sweep_kernel", "water_prefix_kernel",
+                                         "water_pack_kernel"), "K5": k5})]
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 
     scratch_budget = kss.LIST_SCRATCH_BUDGET
@@ -2509,12 +2915,13 @@ def phase_profile(card: str):
         busy = _union_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
         shares = []
         rest = busy
-        for tag, kname in kernels.items():
-            ms = sum(e["dur"] for e in events if kname in e["name"]) / 1e3
+        for tag, knames in kernels.items():
+            ms = sum(e["dur"] for e in events if any(n in e["name"] for n in knames)) / 1e3
             rest -= ms
             shares.append(f"{tag} {ms:.3f} ms ({100 * ms / busy:.2f}% of busy)")
-        for what, range_name, exclude in (("Verlet epilogue", VERLET_RANGE, knn.values()),
-                                          ("K4's in-neighbour lists", LISTS_RANGE, ())):
+        for what, range_name, exclude in (("Verlet epilogue", VERLET_RANGE, (*k5, *knn["K6"])),
+                                          ("K4's in-neighbour lists", LISTS_RANGE, ()),
+                                          ("K5's sort and cumsum", CELLS_RANGE, k5)):
             ms = _range_device_ms(all_events, range_name, exclude)
             if ms:
                 rest -= ms
@@ -2530,7 +2937,7 @@ def phase_profile(card: str):
                     "over the traced wall"]
         say(f"[profile] {name}: {perf[0] if perf else 'no perf line'}; "
             f"trace {trace}")
-        main_tag, main_kernel = next(iter(kernels.items()))
+        main_tag, (main_kernel, *_) = next(iter(kernels.items()))
         say(f"[profile] {name}: {main_tag} ({main_kernel}) "
             f"{_idle_report(all_events, events, main_kernel)}")
     kss.LIST_SCRATCH_BUDGET = scratch_budget
@@ -2548,10 +2955,11 @@ def main() -> int:
                          "torch.profiler and print where the device time "
                          "goes")
     ap.add_argument("--k4-before", metavar="CSRC",
-                    help="also time, in turns with K4 at its timed shapes, "
-                         "the K4 of an earlier tree's csrc/ directory (e.g. "
-                         "the parent's, from git archive) and this K4 "
-                         "without its staged first evaluation")
+                    help="also build the K4, K5 and K7 of the parent tree's "
+                         "csrc/ directory (e.g. from git archive), hold this "
+                         "tree's K5 and K7 to them bit for bit and time the "
+                         "three in turns with this tree's (K4 also without "
+                         "its staged first evaluation)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2580,14 +2988,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[build]   {line.strip()}")
 
+    libs = before() if before else None
     phase_rng(dev)
     k2 = phase_k2(dev)
     k1 = phase_k1(dev)
     k3 = phase_k3(dev)
-    k5 = phase_k5(dev)
-    k6 = phase_k6(dev)
-    k4 = phase_k4(dev, before)
-    k7 = phase_k7(dev)
+    k5 = phase_k5(dev, libs)
+    k6 = phase_k6(dev, libs)
+    k4 = phase_k4(dev, libs)
+    k7 = phase_k7(dev, libs)
     paths = phase_end_to_end(card)
     paths.update(phase_water(card))
     if opts.profile:

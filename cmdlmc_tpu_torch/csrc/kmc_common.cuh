@@ -1,5 +1,5 @@
 // Device helpers shared by the kernels: warp reductions (K1, K3, K4), the
-// minimum image (K1-K6), the site-displacement prefix step (K1, K3, K4) and
+// minimum image (K1-K7), the site-displacement prefix step (K1, K3, K4) and
 // the rate laws evaluated inside a kernel (K3, K4).
 //
 // Numerics: every including source builds with --fmad=false and without fast
@@ -32,6 +32,18 @@ __device__ inline void warp_argmax(float& v, int& idx) {
 
 __host__ __device__ inline float minimg(float d, float len) {
   return d - len * rintf(d / len);
+}
+
+// minimg(d, len) = d - len * rintf(d / len), with the division replaced by a
+// product with inv = 1 / len where that rounds the same: q = d * inv lies
+// within 2.5 ulps of d / len, so the two rintf agree unless q lies within
+// 1/16 of a half-integer (or |q| >= 2^16, where an ulp is 2^-7); those, and
+// NaN and inf, take the division. The result is bit-equal to minimg (K5, K7).
+__device__ __forceinline__ float minimg_rcp(float d, float len, float inv) {
+  const float q = d * inv;
+  float r = rintf(q);
+  if (!(fabsf(q - r) < 0.4375f && fabsf(q) < 65536.f)) r = rintf(d / len);
+  return d - len * r;
 }
 
 // Squared length of the orthorhombic minimum image of (dx, dy, dz), summed

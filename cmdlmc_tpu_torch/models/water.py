@@ -115,13 +115,15 @@ def water_unsupported_reason(model: WaterModel,
     package's ``water_fused_supported`` rules: an orthorhombic cell, a law
     the kernel knows, n_atoms 3 or 4, a linear, ramp or interpolated
     transform with at most MAX_INTERP_POINTS points; and, given the site
-    count, K7's limit: its prefix sum takes 12 bytes of shared memory per
-    site)."""
+    count, ``ws.MAX_SITES``, the limit of an earlier K7 whose prefix sum
+    took 12 bytes of shared memory per site, kept until larger runs are
+    checked: ROADMAP A16)."""
     scan = "the scan model is not ported yet (ROADMAP A12)"
     if n_sites is not None and n_sites > ws.MAX_SITES:
-        return (f"{n_sites} sites exceed the water kernel's {ws.MAX_SITES}: its "
-                f"site prefix sum ({12 * n_sites} bytes) does not fit in a "
-                f"block's shared memory; {scan}")
+        return (f"{n_sites} sites exceed the water path's {ws.MAX_SITES}, the limit "
+                f"of an earlier water kernel whose site prefix sum ({12 * n_sites} "
+                f"bytes here) had to fit in a block's shared memory, kept until "
+                f"larger runs are checked (ROADMAP A16); {scan}")
     if not model.cell.orthorhombic:
         return f"the water kernel needs an orthorhombic cell; {scan}"
     if ks.law_kind(model.law) is None:

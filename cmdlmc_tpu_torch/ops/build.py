@@ -51,7 +51,10 @@ _SIGNATURES = {
     + [ctypes.POINTER(_I)],
     "cmdlmc_kmc_sweep_caps": [_P, _I, _I] + [_F] * 4 + [_P, _P, _I],
     "cmdlmc_rng_fill": [_P, _I, _I, _P, _P, _P, _I],
-    "cmdlmc_knn_tables": [_P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I],
+    "cmdlmc_knn_tables": [_P, _I, _I, _I] + [_F] * 4 + [_P] * 5 + [_I] * 5
+    + [_P, _P, _P, _I],
+    "cmdlmc_knn_bin": [_P, _I, _I] + [ctypes.c_double] * 3 + [_I] * 3
+    + [_F, ctypes.c_double] + [_P] * 5 + [_I],
     "cmdlmc_knn_sparse": [_P, _I, _I, _I] + [_F] * 4 + [_P, _P] + [_I] * 5
     + [_P, _P, _P, _I],
     "cmdlmc_topk_sweep_plan": [_I] * 5 + [ctypes.POINTER(_LL)],
@@ -60,7 +63,7 @@ _SIGNATURES = {
         + [ctypes.POINTER(_F)] * 2 + [_P, _I]
     ),
     "cmdlmc_water_sweep": (
-        [_P] * 18 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
+        [_P] * 20 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
     ),
 }
 

@@ -41,17 +41,16 @@ T_NONE, T_LINEAR, T_RAMP, T_INTERP = 0, 1, 2, 3
 # masked lerp in the TPU kernel); the port keeps the JAX package's gate
 MAX_INTERP_POINTS = 1024
 
-# The most sites K7 launches at: each block keeps the site prefix sum, 12 N
-# bytes, in shared memory, within the H100's opt-in limit per block.
+# The most sites the water path takes: the limit of an earlier K7, which
+# kept the site prefix sum (12 N bytes) in each block's shared memory. K7
+# now reads the prefix from a table in global memory and has no such limit;
+# the refusal stays until the CLI's larger runs are checked (ROADMAP A16).
 MAX_SITES = ks.SMEM_OPTIN_H100 // 12
 
-# CUDA threads (replicas) per block of K7. Each block advances its own copy
-# of the prefix sum every frame, so fewer, wider blocks do less of that
-# work: on the H100 (R=8192, B=256) 32, 64, 128 and 256 threads took 1.85,
-# 1.59, 1.46 and 1.46 ms at N=216 and 6.59, 4.39, 3.48 and 2.34 ms at
-# N=1728 (PERF.md). 256 gives 32 blocks at R=8192. The draws do not depend
-# on it.
-BLOCK_THREADS = 256
+# CUDA threads per block of K7's event loop (8 lanes a replica). The loop
+# has no barrier, so narrow blocks spread the replicas over every SM
+# (PERF.md times 32 to 256 at R=8192). The draws do not depend on it.
+BLOCK_THREADS = 64
 
 
 def apply_transform(tkind: int, d: torch.Tensor, tp, tx=None, ty=None) -> torch.Tensor:
@@ -263,6 +262,24 @@ def water_sweep_reference(
             "site_trace": site_trace}
 
 
+def water_prefix_reference(positions: torch.Tensor, prev_pos: torch.Tensor,
+                           site_disp: torch.Tensor, box) -> torch.Tensor:
+    """Plain version of K7's prefix pre-pass: the site prefix sum after each
+    frame of the block, [B, N, 3], s[b] = s[b - 1] + minimg(pos[b] -
+    pos[b - 1]) with pos[-1] = ``prev_pos`` and s[-1] = ``site_disp``, as
+    :func:`water_sweep_reference` carries it (its last row is that
+    function's ``site_disp``)."""
+    box_t = torch.tensor([np.float32(b) for b in box], device=positions.device)
+    rows, s, prev = [], site_disp, prev_pos
+    for post in positions:
+        s = s + _minimg(post - prev, box_t)
+        rows.append(s)
+        prev = post
+    if not rows:
+        return site_disp.new_zeros((0,) + tuple(site_disp.shape))
+    return torch.stack(rows)
+
+
 def water_sweep(
     positions, topd, topi, resc, prev_pos, site_disp, site, last, fsj, wait,
     jumps, ev_count, u_rem, corr, disp_base, law_params, frame0: int, box,
@@ -278,8 +295,10 @@ def water_sweep(
     spares a device sync); ``box`` three floats. Returns the state as
     :func:`water_sweep_reference` does; the inputs are left unchanged. CUDA
     tensors only: the caller takes the plain version for CPU tensors.
-    ``block_threads`` is the CUDA block (replicas per block); the draws do
-    not depend on it."""
+    ``block_threads`` is the CUDA block (threads per block, 8 a replica);
+    the draws do not depend on it. One launch runs K7's three kernels: the
+    prefix pre-pass (:func:`water_prefix_reference` is its plain version),
+    the tables packed per site, then the loop."""
     B, N, _ = positions.shape
     K = topd.shape[1]
     R = site.shape[0]
@@ -327,16 +346,19 @@ def water_sweep(
     prev_in = prev_pos.contiguous()
     s_in = site_disp.contiguous()
     s_out = s_in.clone()
+    s_tab = torch.empty((B, N, 3), dtype=f32, device=dev)
+    rows = torch.empty((B, N, 12), dtype=f32, device=dev)  # packed tables (K7's scratch)
     trunc = torch.zeros(R, dtype=i32, device=dev)
     site_trace = torch.zeros(B, dtype=i32, device=dev)
-    if B > 0 and R > 0:
+    if B > 0:
         lx, ly, lz = (float(np.float32(b)) for b in box)
         lib = build.library()
         water_sweep.launches += 1
         build.check(
             lib.cmdlmc_water_sweep(
                 *(t.data_ptr() for t in tables), prev_in.data_ptr(), s_in.data_ptr(),
-                s_out.data_ptr(), *(t.data_ptr() for t in state), trunc.data_ptr(),
+                s_tab.data_ptr(), rows.data_ptr(), s_out.data_ptr(),
+                *(t.data_ptr() for t in state), trunc.data_ptr(),
                 site_trace.data_ptr(), R, N, B, K, int(tile), int(tile_offset),
                 int(frame0), int(max_events), int(kind), int(relax), int(waiting),
                 int(bool(keep_last)), int(bool(check_old)), int(block_threads),

@@ -223,11 +223,11 @@ def test_cli_refusals(tmp_path, capsys):
 
 
 def test_refuses_past_the_kernel_site_limit(tmp_path):
-    """K7 keeps the site prefix sum (12 bytes a site) in shared memory, so
-    water_unsupported_reason refuses a trajectory of more sites than the
-    H100's opt-in shared memory per block holds (19,370), and the CLI
-    raises NotImplementedError naming ROADMAP A12 rather than reaching a
-    launch that would fail."""
+    """water_unsupported_reason refuses a trajectory of more sites than an
+    earlier K7 could take (its site prefix sum, 12 bytes a site, in the
+    H100's opt-in shared memory per block: 19,370; kept until larger runs
+    are checked, ROADMAP A16), and the CLI raises NotImplementedError naming
+    ROADMAP A12 rather than launching."""
     assert ws.MAX_SITES == 19370 and 12 * ws.MAX_SITES <= 232448 < 12 * (ws.MAX_SITES + 1)
     cfg, _ = _write_water_inputs(tmp_path, frames=1, chunk=1)
     settings = tkw.load_configfile(str(cfg), config_name="KMCWater")
