@@ -10,7 +10,8 @@ nonzero without the final ``ok`` line:
 2. build: every kernel in ``cmdlmc_tpu_torch/csrc/`` with nvcc for sm_90a,
    one nvcc per source, all at once;
 3. RNG: the CUDA counter hash against the torch hash, bit for bit;
-4. K2 (distance matrices) against its plain PyTorch version;
+4. K2 (distance matrices) against its plain PyTorch version bit for bit,
+   timed at the main path's [100, 144, 144] and at [16, 1152, 1152];
 5. K1 (streamed event loop) against its plain version, stale off and on, at
    N=144 and N=256, with whole rows at N=256 (its lists in global memory),
    and every output against the SHA-256 digests recorded from the dense
@@ -27,11 +28,16 @@ nonzero without the final ``ok`` line:
    N=144] (k=8, and k=4 for hydronium; the full scan) and [B=64, N=4608]
    (k=8; the cell route), timed there with the bound from the pairs the
    route needs beside the all-pairs count; K6 (the same tables over a
-   sparse plan) against its plain version and against K5 bit for bit at
-   the box x4 path's rebuild launch [1, 9216], at [64, 9216] and, with the
-   plan forced, [64, 4608], all timed there; at every K5 shape here and in
-   9 the tables equal the parent K5's bit for bit (PARENT_K5_DIGESTS, the
-   SHA-256 recorded from the K5 before the cell route);
+   spatial plan built on the card) against its plain version and against
+   K5 bit for bit, its plan against the plan's plain version (integers
+   exact), at the box x4 path's rebuild launch [1, 9216], at [64, 9216] and
+   at the N=4608 supercell's launch [64, 4608], K6 with its plan, the plan
+   alone and K6's kernel alone timed in turns with K5 there, with the kept
+   share of the pairs and two bounds (the pairs in neighbouring bins, K6's
+   bound; this plan's kept pairs), and K6 and K5 timed in turns from 162 to
+   9216 sites (the route sweep); at every K5 shape here and in 9
+   the tables equal the K5 before its cell route bit for bit
+   (PARENT_K5_DIGESTS, the SHA-256 recorded from it);
 8. K4 (top-K event loop) against its plain version: TopKPairRates k=8 and
    HydroniumRates k=4 (ReLU, relaxation time 20, the blend in the loop) at
    R=4096, B=100, N=144; law kinds 1-3, a triclinic cell, 16 events a frame
@@ -51,14 +57,14 @@ nonzero without the final ``ok`` line:
    ramp, the 57-point table, n_atoms = 4 and a waiting time at R=1024,
    B=32; K7 timed at its path's launch (R=8192, B=256) at N=216 and N=1728
    at 32 to 256 threads per block in turns; every K7 output at every case
-   equal to the parent K7's bit for bit (PARENT_K7_DIGESTS);
+   equal to the K7 before its prefix table bit for bit (PARENT_K7_DIGESTS);
 10. end to end through ``driver.run_from_config`` on synthetic trajectories:
    the ``bench.py`` deployment (144 sites, 96 protons, 256-frame blocks) at
    16384 replicas (stage 1 + K1) and at 1024 (K3), the angle deployment of
    ``tools/bench_fused_variants.py`` (36 P atoms, FermiAngle) at 1024 (K3)
    and 4096 replicas (stage 1 + K1), that tool's top-K (k=8) and hydronium
    (k=4) deployments at 4096 replicas, and ``tools/bench_topk_e2e.py``'s
-   supercell (4608 sites, 3072 protons, 4096 replicas; K5 + K4), and the
+   supercell (4608 sites, 3072 protons, 4096 replicas; K6 + K4), and the
    box x4 supercell (bench.py's cell with box_multiplier = 4, 4, 4: 9216
    sites, 6144 protons, 4096 replicas, Verlet candidate reuse by the auto
    rule; K6 + K4), each with its own launch counts; before them small
@@ -69,7 +75,9 @@ nonzero without the final ``ok`` line:
    1024 frames and 1728 sites (its 57-point conversion table) over 512
    frames, each with its own launch counts, wall time and site-updates/s;
    before them a small water run (R=64, 64 frames) whose rows on the card
-   equal those on the CPU;
+   equal those on the CPU; after them, past the 19,370 sites of the K7
+   before its prefix table, the water tables and K7 against their plain
+   versions at N=20000 and the CLI run there (R=256, 16 frames);
 12. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
    rates), the two top-K supercell runs and the water N=216 run traced
    with torch.profiler (device busy and idle time, each kernel's share, the
@@ -80,9 +88,10 @@ nonzero without the final ``ok`` line:
    and water trajectories timed alone.
 
 With ``--k4-before CSRC`` (a copy of the parent tree's csrc/, e.g. from
-``git archive``) the parent's K4, K5 and K7 are built beside this tree's,
-held to them bit for bit in this run (their digests printed, for
-PARENT_K5_DIGESTS and PARENT_K7_DIGESTS) and timed in turns with them.
+``git archive``) the parent's K2, K4, K5, K6 and K7 are built beside this
+tree's; K2, K5, K6 and K7 are held to them bit for bit in this run (K6
+against the parent's K6 over the host plan) and the five timed in turns
+with them.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the end-to-end run of its path, its error against the plain
@@ -176,6 +185,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def device_ms(fn, reps: int = 20, names=None) -> float:
+    """Mean device time of fn() in ms per call: the durations of the device
+    work (kernels, memsets, copies) its calls launched, or of the kernels
+    whose names hold one of `names`, in a torch.profiler trace of `reps`
+    calls after a warm call. Unlike cuda_ms it leaves out the host's time
+    between launches, which bounds the small shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    WORK.mkdir(parents=True, exist_ok=True)
+    trace = WORK / "device_ms_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") and "dur" in e
+              and (names is None or any(n in e.get("name", "") for n in names))]
+    if not events:
+        raise AssertionError("the profiler saw no device work")
+    return sum(e["dur"] for e in events) / 1e3 / reps
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -280,52 +315,99 @@ def phase_rng(dev):
         f"counters ({m * n} draws)")
 
 
-def phase_k2(dev):
-    """K2 against pairwise_reference on the card, at the main path's launch
-    shape [PRINT_FREQ, 144, 3] (timed there too), at N=144 with positions
-    far outside the box, and at N=1152. Bound 2e-4, as the JAX package's
-    tests/ops/test_pairwise.py has it."""
+def pairwise_bound(batch: int, n: int) -> dict:
+    """K2's bound: PAIRWISE_OPS per output; the positions read once and the
+    [B, N, N] distances written once (the store bounds it)."""
+    return bound(PAIRWISE_OPS * batch * n * n, 4.0 * batch * n * (n + 3))
+
+
+def _parent_pairwise(lib, pos, box3):
+    """The parent's K2 (one thread per output) launched as its wrapper
+    launched it."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
+
+    B, n, _ = pos.shape
+    out = torch.empty((B, n, n), dtype=torch.float32, device=pos.device)
+    build.check(lib.cmdlmc_pairwise(pos.data_ptr(), B, n, *(float(x) for x in box3),
+                                    out.data_ptr(), build.stream_of(pos),
+                                    pos.device.index or 0), "parent K2")
+    return out
+
+
+def phase_k2(dev, libs=None):
+    """K2 against pairwise_reference on the card, bit for bit: at N=143 (rows
+    not 16-byte aligned: scalar stores), N=144 with positions far outside
+    the box, N=1152, and 70000 frames of 4 sites (more frames than a grid
+    row and than the launch's blocks); timed at the main path's launch shape
+    [PRINT_FREQ, 144, 144] and at the dense supercell's [16, 1152, 1152]
+    (85 MB of stores), in turns with the parent's K2 when `libs` holds it
+    (parent, this, this, parent; held to it bit for bit there)."""
     import numpy as np
     import torch
 
     from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic, pairwise_reference
 
-    def check(pos, box, label):
-        got = pairwise_cubic(pos, box)
-        want = pairwise_reference(pos, torch.tensor(box, device=dev))
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        say(f"[k2] {label}: max |kernel - plain| = {err:.3e}")
-        if not err <= 2e-4:
-            raise AssertionError(f"K2 disagrees with its plain version: {err}")
-        return err
+    def same(got, want):
+        return bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
 
-    worst = 0.0
-    for n, batch, box, lo, hi in ((N_SITES, 16, (BOX,) * 3, -5.0, 35.0),
-                                  (1152, 2, (29.0,) * 3, -5.0, 35.0)):
+    for n, batch, box, lo, hi in ((143, 16, (BOX,) * 3, 0.0, BOX),
+                                  (N_SITES, 16, (BOX,) * 3, -5.0, 35.0),
+                                  (1152, 2, (29.0,) * 3, -5.0, 35.0),
+                                  (4, 70000, (BOX,) * 3, -5.0, 35.0)):
         rng = np.random.RandomState(n)
         pos = torch.from_numpy(rng.uniform(lo, hi, size=(batch, n, 3))
                                .astype(np.float32)).to(dev)
-        worst = max(worst, check(pos, box, f"N={n} B={batch}"))
-    # the main path's launch shape: one print span of frames
-    rng = np.random.RandomState(0)
-    pos = torch.from_numpy(rng.uniform(0, BOX, size=(PRINT_FREQ, N_SITES, 3))
-                           .astype(np.float32)).to(dev)
-    box_t = torch.tensor((BOX,) * 3, device=dev)
-    ms, got = cuda_ms(lambda: pairwise_cubic(pos, (BOX,) * 3), reps=50)
-    plain_ms, want = cuda_ms(lambda: pairwise_reference(pos, box_t), reps=50)
-    err = float((got - want).abs().max())
-    say(f"[k2] [{PRINT_FREQ},{N_SITES},{N_SITES}] (main path's shape): "
-        f"max |kernel - plain| = {err:.3e}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    if not err <= 2e-4:
-        raise AssertionError(f"K2 disagrees with its plain version: {err}")
-    # no single PyTorch call computes minimum-image distances (torch.cdist
-    # has no periodic images)
-    return {"max_abs_err": max(worst, err), "ms": ms, "plain_ms": plain_ms,
-            **bound(PAIRWISE_OPS * PRINT_FREQ * N_SITES ** 2,
-                    4.0 * PRINT_FREQ * N_SITES * (N_SITES + 3)),
-            "library_ms": None}
+        got = pairwise_cubic(pos, box)
+        want = pairwise_reference(pos, torch.tensor(box, device=dev))
+        err = float((got - want).abs().max())
+        say(f"[k2] N={n} B={batch}: bit for bit against the plain version: "
+            f"{same(got, want)} (max |kernel - plain| {err:.3e})")
+        if not same(got, want):
+            raise AssertionError(f"K2 differs from its plain version at N={n} B={batch}")
+    result = {}
+    for batch, n, box in ((PRINT_FREQ, N_SITES, BOX), (16, 1152, 29.0)):
+        rng = np.random.RandomState(batch)
+        pos = torch.from_numpy(rng.uniform(0, box, size=(batch, n, 3))
+                               .astype(np.float32)).to(dev)
+        box3 = (box,) * 3
+        box_t = torch.tensor(box3, device=dev)
+        turns = {"parent": [], "this": []}
+        order = ("parent", "this", "this", "parent") if libs else ("this", "this")
+        parent = None
+        for name in order:
+            if name == "parent":
+                t, parent = cuda_ms(lambda: _parent_pairwise(libs["parent_pairwise"], pos,
+                                                             box3), reps=50)
+            else:
+                t, got = cuda_ms(lambda: pairwise_cubic(pos, box3), reps=50)
+            turns[name].append(t)
+        plain_ms, want = cuda_ms(lambda: pairwise_reference(pos, box_t), reps=5)
+        dev_ms = {"this": device_ms(lambda: pairwise_cubic(pos, box3))}
+        if libs:
+            dev_ms["parent"] = device_ms(
+                lambda: _parent_pairwise(libs["parent_pairwise"], pos, box3))
+        b_ = pairwise_bound(batch, n)
+        if not same(got, want) or (parent is not None and not same(got, parent)):
+            raise AssertionError(f"K2 [{batch},{n},{n}] differs from its plain version "
+                                 "or the parent's")
+        ms = min(turns["this"])
+        say(f"[k2] [{batch},{n},{n}]: bit for bit against the plain version"
+            + (" and the parent's K2" if parent is not None else "") + "; in turns: "
+            + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
+                        for k, v in turns.items() if v)
+            + " (per call, CUDA events); the kernel's device time (profiler): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+            + f"; plain {plain_ms:.4f} ms; bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}), "
+            f"{100 * b_['bound_ms'] / dev_ms['this']:.1f}% of it on the device, "
+            f"{100 * b_['bound_ms'] / ms:.1f}% per call")
+        if n == N_SITES:
+            # no single PyTorch call computes minimum-image distances
+            # (torch.cdist has no periodic images)
+            result = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b_,
+                      "library_ms": None}
+    return result
 
 
 def _k1_inputs(dev, replicas, frames, n=N_SITES, protons=N_PROTONS, box=BOX,
@@ -1101,33 +1183,6 @@ def _knn_hold(what, pos, box3, gd, gi, wd, wi):
     return len(parted), err
 
 
-# The launch functions of the parent's K5 and K7 (before the cell route and
-# the prefix table), as ops/build.py declared them, for --k4-before.
-PARENT_KNN_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
-                        + [ctypes.c_void_p] * 3 + [ctypes.c_int])
-PARENT_WATER_SIGNATURE = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 14 + [ctypes.c_float] * 5
-                          + [ctypes.c_uint32, ctypes.POINTER(ctypes.c_float),
-                             ctypes.c_void_p, ctypes.c_int])
-
-
-def _parent_knn(lib, pos, box3, cutbuf, k):
-    """The parent's K5 (one thread per column, a 16-entry list, every row)
-    launched as its wrapper launched it."""
-    import numpy as np
-    import torch
-
-    from cmdlmc_tpu_torch.ops import build
-
-    B, N, _ = pos.shape
-    topd = torch.empty((B, k, N), dtype=torch.float32, device=pos.device)
-    topi = torch.empty((B, k, N), dtype=torch.int32, device=pos.device)
-    build.check(lib.cmdlmc_knn_tables(
-        pos.data_ptr(), B, N, int(k), *(float(x) for x in box3),
-        float(np.float32(cutbuf)), topd.data_ptr(), topi.data_ptr(),
-        build.stream_of(pos), pos.device.index or 0), "parent K5")
-    return topd, topi
-
-
 def _digest(tensors: dict) -> dict:
     """SHA-256 of each tensor's bytes."""
     return {k: hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
@@ -1358,25 +1413,6 @@ def _knn_bound(pos, box3, cutbuf, k, topd) -> tuple:
     return bound(ops, nbytes), every, f"cells {grid}"
 
 
-def _k5_in_turns(libs, pos, box3, cutbuf, k, reps=20):
-    """This K5 and the parent's timed in turns (parent, this, this, parent)
-    as text, and the parent's tables."""
-    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
-
-    times = {"parent": [], "this": []}
-    out = None
-    for name in ("parent", "this", "this", "parent"):
-        if name == "parent":
-            ms, out = cuda_ms(lambda: _parent_knn(libs["parent_knn"], pos, box3, cutbuf, k),
-                              reps=reps)
-        else:
-            ms, _ = cuda_ms(lambda: knn_block_tables(pos, box3, cutbuf, k), reps=reps)
-        times[name].append(ms)
-    text = "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
-                     for n, ts in times.items())
-    return text, out
-
-
 def _k5_cell_parts(pos, box3, cutbuf, k):
     """The cell route's parts timed alone, as text: the binning
     (ops/knn_tables.py::cell_lists: knn_bin_kernel, torch's sort and cumsum)
@@ -1408,16 +1444,10 @@ def _k5_cell_parts(pos, box3, cutbuf, k):
             + f" ms (the route takes {knn.cell_threads(B * grid[0] * grid[1])})")
 
 
-def _hold_k5(tag, label, pos, box3, cutbuf, k, got, libs):
-    """K5's tables `got` held to the parent K5's bit for bit (its run with
-    --k4-before, timed in turns with this K5, and the recorded digests)."""
-    parent = None
-    if libs:
-        text, (pd, pi) = _k5_in_turns(libs, pos, box3, cutbuf, k)
-        say(f"[{tag}] {label}: K5 in turns: {text}")
-        parent = {"topd": pd, "topi": pi}
-    _held_to_parent(tag, label, {"topd": got[0], "topi": got[1]}, PARENT_K5_DIGESTS,
-                    parent)
+def _hold_k5(tag, label, got):
+    """K5's tables `got` held bit for bit to the digests recorded from the
+    K5 before its cell route (PARENT_K5_DIGESTS)."""
+    _held_to_parent(tag, label, {"topd": got[0], "topi": got[1]}, PARENT_K5_DIGESTS)
 
 
 def phase_k5(dev, libs=None):
@@ -1425,10 +1455,12 @@ def phase_k5(dev, libs=None):
     shape [PRINT_FREQ, 144] at k=8 and, for the hydronium path, k=4, at
     [256, 144] and at the supercell's [64, 4608] (the cell route). Indices
     equal, except where the two candidates' distances lie within an ulp of
-    each other; distances within an ulp. Held bit for bit to the parent K5
-    (recorded digests; with `libs` its run, timed in turns with this one).
-    Timed at each shape, the bound from the pairs the route needs beside the
-    all-pairs count."""
+    each other; distances within an ulp. Held bit for bit to the K5 before
+    its cell route (recorded digests). Timed at each shape, the bound from
+    the pairs the route needs beside the all-pairs count. With `libs` the
+    parent's K5 is held to it bit for bit and timed in turns with it
+    (parent, this, this, parent), and K5 at the box x4 rebuild's [1, 9216]
+    too."""
     import torch
 
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables, knn_block_tables_reference
@@ -1441,11 +1473,13 @@ def phase_k5(dev, libs=None):
         box3 = (box,) * 3
         label = f"[{b},{n}] k={k}"
         ms, (gd, gi) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=20)
+        if libs:
+            say(f"[k5] {label}: {_k5_in_turns(libs, pos, box3, CUTBUF, k, (gd, gi))}")
         plain_ms, (wd, wi) = cuda_ms(
             lambda: knn_block_tables_reference(pos, box3, CUTBUF, k), reps=1)
         parted, err = _knn_hold(f"K5 {label}", pos, box3, gd, gi, wd, wi)
         worst = max(worst, err)
-        _hold_k5("k5", label, pos, box3, CUTBUF, k, (gd, gi), libs)
+        _hold_k5("k5", label, (gd, gi))
         b_, every, route = _knn_bound(pos, box3, CUTBUF, k, gd)
         if route != "full scan":
             say(f"[k5] {label}: {_k5_cell_parts(pos, box3, CUTBUF, k)}")
@@ -1457,25 +1491,56 @@ def phase_k5(dev, libs=None):
             # no single PyTorch call computes it: torch.cdist has no periodic
             # images and torch.topk no first-lowest-index tie rule
             result = {"ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+    if libs:
+        pos = torch.from_numpy(_box4_block(1)).to(dev)
+        got = knn_block_tables(pos, (BX_BOX,) * 3, CUTBUF, TOPK_K)
+        say(f"[k5] [1,{BX_SITES}] k={TOPK_K}: "
+            f"{_k5_in_turns(libs, pos, (BX_BOX,) * 3, CUTBUF, TOPK_K, got)}")
     result["max_abs_err"] = worst
     return result
 
 
+def _k5_in_turns(libs, pos, box3, cutbuf, k, got, reps=20) -> str:
+    """This K5 and the parent's timed in turns (parent, this, this, parent),
+    the parent's tables held to `got` bit for bit, as text."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
+
+    times = {"parent": [], "this": []}
+    for name in ("parent", "this", "this", "parent"):
+        if name == "parent":
+            with _library(libs["parent_knn"]):
+                ms, out = cuda_ms(lambda: knn_block_tables(pos, box3, cutbuf, k), reps=reps)
+            if not (torch.equal(out[1], got[1])
+                    and torch.equal(out[0].view(torch.int32), got[0].view(torch.int32))):
+                raise AssertionError(f"K5 at {tuple(pos.shape)} differs from the parent's")
+        else:
+            ms, _ = cuda_ms(lambda: knn_block_tables(pos, box3, cutbuf, k), reps=reps)
+        times[name].append(ms)
+    return ("equals the parent's K5 bit for bit; in turns: " + "; ".join(
+        f"{n} " + ", ".join(f"{t:.4f}" for t in v) + " ms" for n, v in times.items()))
+
+
 def knn_sparse_ops(plan, n: int) -> float:
-    """K6's least operations per frame over a sparse plan, counted as
-    knn_ops counts K5's: the distance and cutoff test of each unordered pair
-    that one of its two (tile, chunk) pairs keeps (d(i,j) = d(j,i)), and one
-    compare per ordered kept (column, row) pair but self. Returns the
-    operations and the share of all unordered pairs that the plan keeps."""
+    """K6's least operations per frame over a sparse plan (either kind),
+    counted as knn_ops counts K5's: the distance and cutoff test of each
+    unordered pair that one of its two (tile, chunk) pairs keeps (d(i,j) =
+    d(j,i)), and one compare per ordered kept (column, row) pair but self.
+    Returns the operations and the share of all unordered pairs that the
+    plan keeps."""
     import math
 
     import numpy as np
 
+    from cmdlmc_tpu_torch.ops import knn_sparse as kns
+
+    lists = kns._host_lists(plan)
     g = math.gcd(plan.rc, plan.tc)  # each g-block lies in one tile and one chunk
     first = np.arange(0, n, g)
     size = np.minimum(g, n - first).astype(np.float64)
-    keep = np.zeros((plan.lists.shape[0], plan.n_ch), dtype=bool)
-    for t, chunks in enumerate(plan.lists):
+    keep = np.zeros((lists.shape[0], plan.n_ch), dtype=bool)
+    for t, chunks in enumerate(lists):
         keep[t, chunks[chunks < plan.n_ch]] = True
     ordered = keep[first // plan.tc][:, first // plan.rc]  # [column block, row block]
     either = ordered | ordered.T
@@ -1485,15 +1550,56 @@ def knn_sparse_ops(plan, n: int) -> float:
     return float(unordered * (PAIRWISE_OPS + 1) + compares), unordered / (n * (n - 1) / 2)
 
 
+# The launch function of the parent's K6 (the host plan's 128-column tiles,
+# one block each), as ops/build.py declared it, for --k4-before.
+PARENT_SPARSE_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int])
+
+
+def _parent_k6(lib, pos, box3, cutbuf, k, perm, lists, plan):
+    """The parent's K6 over its host plan (`perm` and `lists` already on the
+    card), launched as its wrapper launched it."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.ops import build
+
+    B, N, _ = pos.shape
+    topd = torch.empty((B, k, N), dtype=torch.float32, device=pos.device)
+    topi = torch.empty((B, k, N), dtype=torch.int32, device=pos.device)
+    n_ct, maxa = lists.shape
+    build.check(lib.cmdlmc_knn_sparse(
+        pos.data_ptr(), B, N, int(k), *(float(x) for x in box3), float(np.float32(cutbuf)),
+        perm.data_ptr(), lists.data_ptr(), n_ct, maxa, plan.n_ch, plan.rc, plan.tc,
+        topd.data_ptr(), topi.data_ptr(), build.stream_of(pos), pos.device.index or 0),
+        "parent K6")
+    return topd, topi
+
+
+def _same_plan(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("perm", "inv", "lists", "count")) and a.n_ch == b.n_ch
+
+
 def phase_k6(dev, libs=None):
-    """K6 against its plain version (as K5 is held to its own) and against
-    K5, which it must equal bit for bit: at the box x4 path's own launch, a
-    rebuild's one frame [1, 9216] over that frame's plan; at [64, 9216]
-    (bench.py's cell replicated 4 x 4 x 4, the JAX gate open); and at
-    [64, 4608] (tools/bench_topk_e2e.py's supercell, the gate closed there,
-    so the plan is forced). K6 and K5 timed in turns (K6, K5, K5, K6) at
-    each shape, the host plan timed for each; K5 held bit for bit to the
-    parent K5 there (with `libs` also timed in turns with it)."""
+    """K6 over the plan built on the card: at the box x4 path's own launch, a
+    rebuild's one frame [1, 9216]; at [64, 9216] (bench.py's cell replicated
+    4 x 4 x 4); and at [64, 4608] (tools/bench_topk_e2e.py's supercell, a
+    block of its path). At each shape:
+    the card's plan equals its plain version (device_plan_reference on the
+    CPU, integers exact); K6 equals K5 bit for bit, and its plain version
+    over the same plan as K5's is held; K6 with its plan, the plan alone and
+    the kernel alone timed in turns with K5 (K6, K5, K5, K6); the kept share
+    of the unordered pairs for this plan and for the host plan copied from
+    the JAX package (RC=64, TC=128), the bound from the pairs in neighbouring
+    bins of width cutoff + buffer (no plan at all: K6's bound in the result,
+    as K5's) and from this plan's kept pairs; K5 held bit for bit to the digests of the K5 before its cell
+    route. With `libs` the parent's K6 over its host plan is held to K6 bit
+    for bit and timed in turns with K6's kernel (parent, this, this,
+    parent)."""
     import torch
 
     from cmdlmc_tpu_torch.ops import knn_sparse as kns
@@ -1501,53 +1607,152 @@ def phase_k6(dev, libs=None):
 
     k, worst, result = TOPK_K, 0.0, {}
     box4 = _box4_block(64)
-    for b, n, box, forced in ((1, BX_SITES, BX_BOX, False), (64, BX_SITES, BX_BOX, False),
-                              (64, SC_SITES, SC_BOX, True)):
+    for b, n, box in ((1, BX_SITES, BX_BOX), (64, BX_SITES, BX_BOX), (64, SC_SITES, SC_BOX)):
         block = box4[:b] if n == BX_SITES else _walk_block(n, b, box)
         pos = torch.from_numpy(block).to(dev)
         box3 = (box,) * 3
-        gate = dict(min_n=0, max_ratio=1.0) if forced else {}
-        shape = f"[{b},{n}]{' (gate forced)' if forced else ''}"
-        t0 = time.perf_counter()
-        plan = kns.sparse_plan_for(pos, box3, CUTBUF, **gate)
-        plan_s = time.perf_counter() - t0
-        if plan is None or (kns.sparse_plan_for(pos, box3, CUTBUF) is None) != forced:
-            raise AssertionError(f"K6 {shape}: the plan's gate is not as expected")
+        routed = kns.sparse_route(n, box3, CUTBUF)
+        shape = f"[{b},{n}]{'' if routed else ' (K5 by the route; K6 called directly)'}"
+        plan = kns.device_plan(pos, box3, CUTBUF)
+        want_plan = kns.device_plan_reference(pos.cpu(), box3, CUTBUF)
+        if not _same_plan(plan, want_plan):
+            raise AssertionError(f"K6 {shape}: the card's plan differs from its plain version")
         reps = 20 if b == 1 else 5
-        a1, (d6, i6) = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan),
+        turns = {"K6": [], "K5": [], "K6 kernel": [], "plan": []}
+        for name in ("K6", "K5", "K6 kernel", "plan", "plan", "K6 kernel", "K5", "K6"):
+            if name == "K6":
+                t, (d6, i6) = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k),
+                                      reps=reps)
+            elif name == "K5":
+                t, (d5, i5) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k),
+                                      reps=reps)
+            elif name == "plan":
+                t, _ = cuda_ms(lambda: kns.device_plan(pos, box3, CUTBUF), reps=reps)
+            else:
+                t, _ = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan),
                                reps=reps)
-        b1, (d5, i5) = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=reps)
-        b2, _ = cuda_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k), reps=reps)
-        a2, _ = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan), reps=reps)
+            turns[name].append(t)
         plain_ms, (wd, wi) = cuda_ms(
             lambda: kns.knn_sparse_tables_reference(pos, box3, CUTBUF, k, plan), reps=1)
+        on_device = {"K6": device_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k)),
+               "K5": device_ms(lambda: knn_block_tables(pos, box3, CUTBUF, k)),
+               "K6 kernel": device_ms(
+                   lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan)),
+               "plan": device_ms(lambda: kns.device_plan(pos, box3, CUTBUF))}
         n_i = int((i6 != i5).sum())
         n_d = int((d6.view(torch.int32) != d5.view(torch.int32)).sum())
-        say(f"[k6] {shape} k={k}: K6 vs K5 {n_i} differing indices, {n_d} differing "
-            f"distances (bit for bit)")
+        say(f"[k6] {shape} k={k}: the card's plan equals its plain version; K6 vs K5 "
+            f"{n_i} differing indices, {n_d} differing distances (bit for bit)")
         if n_i or n_d:
             raise AssertionError(f"K6 {shape} differs from K5")
-        _hold_k5("k6", f"[{b},{n}] k={k}", pos, box3, CUTBUF, k, (d5, i5), libs)
+        _hold_k5("k6", f"[{b},{n}] k={k}", (d5, i5))
         parted, err = _knn_hold(f"K6 {shape}", pos, box3, d6, i6, wd, wi)
         worst = max(worst, err)
         ops, share = knn_sparse_ops(plan, n)
-        b_ = bound(b * ops, 4.0 * b * n * 3 + 8.0 * b * k * n)
-        say(f"[k6] {shape}: plan keeps {plan.lists.shape[1]} of {plan.n_ch} chunks per "
-            f"tile at most (ratio {plan.ratio:.3f}), {share:.4f} of the unordered "
-            f"pairs; host plan {1e3 * plan_s:.1f} ms; {parted} index partings against "
-            f"the plain version (ties within an ulp), max distance error {err:.3e}")
-        k5_bound, every, route = _knn_bound(pos, box3, CUTBUF, k, d5)
+        t0 = time.perf_counter()
+        host = kns.SparsePlan(*kns.plan_sparse(pos.cpu().numpy(), box3, CUTBUF),
+                              kns.RC, kns.TC)
+        host_s = time.perf_counter() - t0
+        _, host_share = knn_sparse_ops(host, n)
+        # the JAX package's bin-major order at this plan's sizes
+        rods = kns.SparsePlan(*kns.plan_sparse(pos.cpu().numpy(), box3, CUTBUF, rc=plan.rc,
+                                               tc=plan.tc), plan.rc, plan.tc)
+        _, rods_share = knn_sparse_ops(rods, n)
+        nbytes = 4.0 * b * n * 3 + 8.0 * b * k * n
+        b_ = bound(b * ops, nbytes)
+        grid = kns.plan_bins(box3, CUTBUF)
+        cells = bound(knn_cell_ops(pos, box3, k, grid), nbytes)
+        kept = plan.count.sum().item()
+        say(f"[k6] {shape}: plan keeps {kept} of {plan.lists.shape[0] * plan.n_ch} "
+            f"(tile, chunk) pairs, {share:.4f} of the unordered pairs (the bin-major "
+            f"order at RC={plan.rc} TC={plan.tc}: {rods_share:.4f}; the host plan "
+            f"RC={host.rc} TC={host.tc}: {host_share:.4f}, built on the host in "
+            f"{1e3 * host_s:.1f} ms); {parted} index partings against the plain version "
+            f"(ties within an ulp), max distance error {err:.3e}")
+        if libs:
+            hperm = torch.from_numpy(host.perm.astype("int32")).to(dev)
+            hlists = torch.from_numpy(host.lists.astype("int32")).to(dev)
+            ptimes = {"parent": [], "this": []}
+            parent = None
+            for name in ("parent", "this", "this", "parent"):
+                if name == "parent":
+                    t, parent = cuda_ms(lambda: _parent_k6(libs["parent_sparse"], pos, box3,
+                                                           CUTBUF, k, hperm, hlists, host),
+                                        reps=reps)
+                else:
+                    t, _ = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan),
+                                   reps=reps)
+                ptimes[name].append(t)
+            if not (torch.equal(parent[1], i6)
+                    and torch.equal(parent[0].view(torch.int32), d6.view(torch.int32))):
+                raise AssertionError(f"K6 {shape} differs from the parent's K6")
+            say(f"[k6] {shape}: equals the parent's K6 over its host plan bit for bit; "
+                "kernels in turns: " + "; ".join(
+                    f"{name} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
+                    for name, v in ptimes.items()))
+        say(f"[k6] {shape}: in turns: " + "; ".join(
+            f"{name} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
+            for name, v in turns.items())
+            + " (K6 with its plan, K5, K6's kernel over a built plan, the plan alone; "
+            "per call, CUDA events); device time (profiler): "
+            + ", ".join(f"{name} {v:.4f} ms" for name, v in on_device.items())
+            + "; "
+            f"plain {plain_ms:.3f} ms; K6 bound {cells['bound_ms']:.5f} ms "
+            f"({cells['bound_by']}: the pairs in neighbouring bins {grid}, no plan), "
+            f"{b_['bound_ms']:.5f} ms (this plan's kept pairs); "
+            f"K6 {'beats' if min(turns['K6']) < min(turns['K5']) else 'loses to'} K5")
         if b == 1:
             say(f"[k6] {shape}: K5 {_k5_cell_parts(pos, box3, CUTBUF, k)}")
-        say(f"[k6] {shape}: K6 {a1:.4f} / {a2:.4f} ms, K5 {b1:.4f} / {b2:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, K6 bound {b_['bound_ms']:.5f} ms ({b_['bound_by']}); "
-            f"K5 ({route}) bound {k5_bound['bound_ms']:.5f} ms (every pair "
-            f"{every['bound_ms']:.5f} ms)")
-        if b == 1:
-            # no single PyTorch call computes it (see phase_k5)
-            result = {"ms": a1, "plain_ms": plain_ms, **b_, "library_ms": None}
+            # the bound of the function, as K5's: it does not shrink with the
+            # plan; no single PyTorch call computes it (see phase_k5)
+            result = {"ms": min(turns["K6"]), "plain_ms": plain_ms, **cells,
+                      "library_ms": None}
+    say(f"[k6] route: {_sparse_route_sweep(dev)}")
     result["max_abs_err"] = worst
     return result
+
+
+# the sites of the route sweep: bench.py's density (boxes 14.5 (N / 144)^(1/3)),
+# from the fewest sites with 3 bins of cutoff + buffer an axis (162; 160 is
+# the first) to 11 bins
+ROUTE_SITES = (162, 216, 288, 432, 576, 864, 1152, 2304, 3456, 4608, 6912, 9216)
+
+
+def _sparse_route_sweep(dev) -> str:
+    """K6 (its plan included) and K5 timed in turns (K6, K5, K5, K6) per call
+    at ROUTE_SITES, for one frame (a Verlet rebuild) and a block of 64 (a
+    run without reuse), the tables held equal; returns the table as text,
+    each entry `N/frames: K6 ms, K5 ms` with the route's pick."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import knn_sparse as kns
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
+
+    out = []
+    for n in ROUTE_SITES:
+        box = BOX * (n / N_SITES) ** (1.0 / 3.0)
+        box3 = (box,) * 3
+        block = torch.from_numpy(_walk_block(n, 64, box, seed=n)).to(dev)
+        for b in (1, 64):
+            pos = block[:b]
+            times = {"K6": [], "K5": []}
+            for name in ("K6", "K5", "K5", "K6"):
+                fn = ((lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, TOPK_K))
+                      if name == "K6" else (lambda: knn_block_tables(pos, box3, CUTBUF, TOPK_K)))
+                t, got = cuda_ms(fn, reps=10 if b == 1 else 3)
+                times[name].append(t)
+                if name == "K6":
+                    six = got
+                else:
+                    five = got
+            if not (torch.equal(six[1], five[1])
+                    and torch.equal(six[0].view(torch.int32), five[0].view(torch.int32))):
+                raise AssertionError(f"K6 differs from K5 at [{b},{n}]")
+            pick = "K6" if kns.sparse_route(n, box3, CUTBUF) else "K5"
+            out.append(f"{n}/{b}: K6 " + ", ".join(f"{t:.4f}" for t in times["K6"])
+                       + ", K5 " + ", ".join(f"{t:.4f}" for t in times["K5"])
+                       + f" ms (route: {pick})")
+    return "; ".join(out)
 
 
 # phase_k4's two stress cases of K4's carried sums: bench.py's Fermi at 8x
@@ -1764,9 +1969,11 @@ def full_topk_bound(R, B, N, P, K, events, blend, table_bytes) -> dict:
 
 def _k4_before_libraries(parent_csrc):
     """Start the nvcc builds of the kernels timed beside this tree's: the
-    parent's ``topk_sweep.cu`` (K4), ``knn_tables.cu`` (K5) and
-    ``water_sweep.cu`` (K7) from `parent_csrc` (a copy of an earlier tree's
-    csrc/, e.g. from ``git archive``), each on its own, this tree's K4
+    parent's ``topk_sweep.cu`` (K4), ``knn_sparse.cu`` (K6), ``pairwise.cu``
+    (K2), ``knn_tables.cu`` (K5) and ``water_sweep.cu`` (K7) from
+    `parent_csrc` (a copy of an earlier tree's csrc/, e.g. from ``git
+    archive``; its K5 and K7 have this tree's interface), each on its own,
+    this tree's K4
     built with -DCMDLMC_TOPK_UNSTAGED (the first evaluation read by every
     warp from L2) and this tree's K7 with 4 and 16 lanes per replica
     (-DWATER_LANES). Returns a function that waits for them and loads them."""
@@ -1776,8 +1983,10 @@ def _k4_before_libraries(parent_csrc):
     out.mkdir(parents=True, exist_ok=True)
     csrc = Path(parent_csrc)
     jobs = {"parent": ([csrc / "topk_sweep.cu", csrc / "errors.cu"], []),
-            "parent_knn": ([csrc / "knn_tables.cu"], []),
-            "parent_water": ([csrc / "water_sweep.cu"], []),
+            "parent_sparse": ([csrc / "knn_sparse.cu"], []),
+            "parent_pairwise": ([csrc / "pairwise.cu"], []),
+            "parent_knn": ([csrc / "knn_tables.cu", csrc / "errors.cu"], []),
+            "parent_water": ([csrc / "water_sweep.cu", csrc / "errors.cu"], []),
             "unstaged": ([build.CSRC_DIR / "topk_sweep.cu", build.CSRC_DIR / "errors.cu"],
                          ["-DCMDLMC_TOPK_UNSTAGED"])}
     for lanes in (4, 16):  # this K7 with other lanes per replica than its 8
@@ -1805,13 +2014,17 @@ def _k4_before_libraries(parent_csrc):
                 getattr(lib, name).argtypes = build._SIGNATURES[name]
             lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
             lib.cmdlmc_error_string.restype = ctypes.c_char_p
-        for lanes in (4, 16):
-            lib = libs[f"water_lanes{lanes}"]
-            lib.cmdlmc_water_sweep.argtypes = build._SIGNATURES["cmdlmc_water_sweep"]
+        for name, fns in (("water_lanes4", ("cmdlmc_water_sweep",)),
+                          ("water_lanes16", ("cmdlmc_water_sweep",)),
+                          ("parent_water", ("cmdlmc_water_sweep",)),
+                          ("parent_knn", ("cmdlmc_knn_bin", "cmdlmc_knn_tables"))):
+            lib = libs[name]
+            for fn in fns:
+                getattr(lib, fn).argtypes = build._SIGNATURES[fn]
             lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
             lib.cmdlmc_error_string.restype = ctypes.c_char_p
-        libs["parent_knn"].cmdlmc_knn_tables.argtypes = PARENT_KNN_SIGNATURE
-        libs["parent_water"].cmdlmc_water_sweep.argtypes = PARENT_WATER_SIGNATURE
+        libs["parent_sparse"].cmdlmc_knn_sparse.argtypes = PARENT_SPARSE_SIGNATURE
+        libs["parent_pairwise"].cmdlmc_pairwise.argtypes = build._SIGNATURES["cmdlmc_pairwise"]
         return libs
 
     return wait
@@ -2081,37 +2294,6 @@ def _water_kw(**extra):
     return kw
 
 
-def _parent_k7_call(lib, args, kw, threads=256):
-    """The parent's K7 (each block advancing its own copy of the prefix sum
-    in shared memory every frame) launched as its wrapper launched it, on
-    copies of the state."""
-    import numpy as np
-    import torch
-
-    from cmdlmc_tpu_torch.ops import build
-    from cmdlmc_tpu_torch.ops import water_sweep as ws
-
-    pos, topd, topi, resc, prev, sd, *rest = args
-    state, law, frame0, box = rest[:9], rest[9], rest[10], rest[11]
-    B, N, _ = pos.shape
-    R = state[0].shape[0]
-    st = [t.contiguous().clone() for t in state]
-    s_out = sd.contiguous().clone()
-    trunc = torch.zeros(R, dtype=torch.int32, device=pos.device)
-    trace = torch.zeros(B, dtype=torch.int32, device=pos.device)
-    params = [float(x) for x in torch.as_tensor(law, dtype=torch.float32).tolist()]
-    build.check(lib.cmdlmc_water_sweep(
-        *(t.data_ptr() for t in (pos, topd, topi, resc, prev, sd, s_out, *st, trunc, trace)),
-        R, N, B, topd.shape[1], kw["tile"], 0, int(frame0), kw["max_events"], kw["kind"],
-        kw["relax"], kw["waiting"], int(kw["keep_last"]), int(kw["check_old"]), threads,
-        float(np.float32(kw["dt"])), float(np.float32(kw["d_oh"])),
-        *(float(np.float32(x)) for x in box), int(kw["seed"]) & 0xFFFFFFFF,
-        (ctypes.c_float * 6)(*params), build.stream_of(pos), pos.device.index or 0),
-        "parent K7")
-    return {**dict(zip(ws.STATE_KEYS, st)), "site_disp": s_out,
-            "prev_pos": pos[B - 1].clone(), "trunc": trunc, "site_trace": trace}
-
-
 def _k7_lanes(libs, args, kw, got):
     """This K7 (8 lanes a replica) timed in turns with its builds at 4 and 16
     lanes (8, 4, 16, 16, 4, 8), each held to its bits, as text."""
@@ -2168,7 +2350,10 @@ def phase_k7(dev, libs=None):
             f"version {plain_ms:.3f} ms")
         if not same:
             raise AssertionError(f"water tables at N={n} differ from their plain version")
-        _hold_k5("k7", f"[{W_BLOCK},{n}] k=3 no cutoff", pos, box3, inf, 3, got[:2], libs)
+        _hold_k5("k7", f"[{W_BLOCK},{n}] k=3 no cutoff", got[:2])
+        if libs:
+            say(f"[k7] water tables [{W_BLOCK},{n}]: K5 "
+                f"{_k5_in_turns(libs, pos, box3, inf, 3, got[:2])}")
         if route != "full scan":
             say(f"[k7] water tables [{W_BLOCK},{n}]: {_k5_cell_parts(pos, box3, inf, 3)}")
 
@@ -2187,8 +2372,7 @@ def phase_k7(dev, libs=None):
                  f"{ {key: kw[key] for key in ('relax', 'waiting', 'keep_last', 'check_old')} }")
         worst = max(worst, _k7_check(label, pos, tables, state, law, got, want, 0,
                                      (W_BOX,) * 3, kw))
-        parent = _parent_k7_call(libs["parent_water"], args, kw) if libs else None
-        _held_to_parent("k7", label, got, PARENT_K7_DIGESTS, parent)
+        _held_to_parent("k7", label, got, PARENT_K7_DIGESTS)
 
     result = {}
     for n, box, tname in ((W_SITES, W_BOX, "linear"), (W_BIG_SITES, W_BIG_BOX, "interp")):
@@ -2209,14 +2393,14 @@ def phase_k7(dev, libs=None):
             turns = {"parent": [], "this": []}
             for name in ("parent", "this", "this", "parent"):
                 if name == "parent":
-                    t, parent = cuda_ms(lambda: _parent_k7_call(libs["parent_water"], args, kw),
-                                        reps=3)
+                    with _library(libs["parent_water"]):
+                        t, parent = cuda_ms(lambda: ws.water_sweep(*args, **kw), reps=3)
                 else:
                     t, _ = cuda_ms(lambda: ws.water_sweep(*args, **kw), reps=3)
                 turns[name].append(t)
-            say(f"[k7] {label}: K7 in turns with the parent's (256 threads per block): "
-                + "; ".join(f"{k_} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
-                            for k_, v in turns.items()))
+            say(f"[k7] {label}: K7 in turns with the parent's: " + "; ".join(
+                f"{k_} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
+                for k_, v in turns.items()))
             say(f"[k7] {label}: lanes per replica in turns: {_k7_lanes(libs, args, kw, got)}")
         _held_to_parent("k7", label, got, PARENT_K7_DIGESTS, parent)
         events = int(want["ev_count"].sum() - state[7].sum())
@@ -2352,19 +2536,21 @@ def parse_rows(text: str):
 
 
 def _counters():
-    """The launch counter of every kernel wrapper, by kernel name."""
+    """The launch counter of every kernel wrapper, by kernel name (and of
+    K6's plan builder, whose kernels launch once per call)."""
     from cmdlmc_tpu_torch.ops import kmc_sweep as ks
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
     from cmdlmc_tpu_torch.ops import water_sweep as ws
-    from cmdlmc_tpu_torch.ops.knn_sparse import knn_sparse_tables
+    from cmdlmc_tpu_torch.ops.knn_sparse import device_plan, knn_sparse_tables
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
     from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 
     return {"kmc_sweep_streamed": kss.kmc_sweep_streamed,
             "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep,
             "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables,
-            "knn_sparse": knn_sparse_tables, "water_sweep": ws.water_sweep}
+            "knn_sparse": knn_sparse_tables, "device_plan": device_plan,
+            "water_sweep": ws.water_sweep}
 
 
 def _small_cuda_vs_cpu(label, cfg):
@@ -2442,8 +2628,9 @@ def phase_end_to_end(card: str):
     CPU, then the deployments end to end on the card: bench.py's at R=16384
     (stage 1 + K1, the main path) and at R=1024 (K3), the angle deployment at
     R=1024 (K3, law kind 4) and R=4096 (stage 1 with the angle W + K1), the
-    top-K and hydronium deployments at R=4096 and the top-K supercell at
-    N=4608 (K5 + K4 each, none of K1, K2, K3)."""
+    top-K and hydronium deployments at R=4096 (K5 + K4 each) and the top-K
+    supercell at N=4608 (K6 + K4: the route takes K6 from 864 sites; none
+    of K1, K2, K3 in any of them)."""
     _small_cuda_vs_cpu("dense", write_inputs(WORK, frames=64, replicas=256))
     _small_cuda_vs_cpu("angle", write_inputs(WORK, frames=64, replicas=256,
                                              angle=True))
@@ -2481,7 +2668,8 @@ def phase_end_to_end(card: str):
     paths["topk supercell N=4608"] = _drive(
         "topk supercell N=4608",
         write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="supercell"),
-        card, 512, SC_REPLICAS, expect=("topk_sweep", "knn_tables"), refuse=dense,
+        card, 512, SC_REPLICAS, expect=("topk_sweep", "knn_sparse", "device_plan"),
+        refuse=(*dense, "knn_tables"),
         n_sites=SC_SITES, protons=SC_PROTONS)
     paths[BOX4] = _drive_box4(card)
     return paths
@@ -2501,14 +2689,20 @@ def _drive_box4(card: str):
         raise AssertionError(f"{BOX4}: the config must leave nbr_reuse at its default")
     ts.topk_tables_verlet.rebuild_frames = 0
     launches = _drive(BOX4, cfg, card, 512, SC_REPLICAS,
-                      expect=("topk_sweep", "knn_sparse"),
-                      refuse=("kmc_sweep_streamed", "pairwise_cubic", "kmc_sweep"),
+                      expect=("topk_sweep", "knn_sparse", "device_plan"),
+                      refuse=("kmc_sweep_streamed", "pairwise_cubic", "kmc_sweep",
+                              "knn_tables"),
                       n_sites=BX_SITES, protons=BX_PROTONS)
     rebuilds = ts.topk_tables_verlet.rebuild_frames
     say(f"[e2e] {BOX4}: {rebuilds} rebuild frames of 512, knn_sparse launches "
-        f"{launches['knn_sparse']}, knn_tables launches {launches['knn_tables']}")
+        f"{launches['knn_sparse']} (each over a plan built on the card: "
+        f"{launches['device_plan']}), knn_tables launches {launches['knn_tables']}")
     if not 0 < rebuilds < 512:
         raise AssertionError(f"{BOX4}: Verlet reuse rebuilt {rebuilds} of 512 frames")
+    if not 0 < launches["knn_sparse"] <= rebuilds \
+            or launches["device_plan"] != launches["knn_sparse"]:
+        raise AssertionError(f"{BOX4}: K6 and its plan must launch once per rebuild "
+                             f"build, got {launches}")
     return launches
 
 
@@ -2651,18 +2845,60 @@ def _drive_water(label, cfg, card, n, frames, replicas):
 
 
 W216, W1728 = "water N=216 R=8192", "water N=1728 R=8192 interp"
+# past 19,370 sites, the limit of the K7 before its prefix table (its prefix
+# sum had to fit in a block's shared memory): a few frames at a small R
+W_HUGE_SITES, W_HUGE_REPLICAS, W_HUGE_FRAMES = 20000, 256, 16
+W_HUGE_BOX = W_BOX * (W_HUGE_SITES / W_SITES) ** (1.0 / 3.0)
+WHUGE = f"water N={W_HUGE_SITES} R={W_HUGE_REPLICAS}"
+
+
+def _water_past_the_old_limit(dev):
+    """At N=20000 (bench_water.py's density, a 84.1 A cube) over 4 frames:
+    the water tables bit for bit against their plain version, and K7 at
+    R=256 against water_sweep_reference, held as phase_k7 holds it."""
+    import torch
+
+    from cmdlmc_tpu_torch.ops import water_sweep as ws
+    from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables_reference
+
+    n, box3, frames = W_HUGE_SITES, (W_HUGE_BOX,) * 3, 4
+    pos, tables, state, law = _k7_inputs(dev, n, frames, W_HUGE_REPLICAS, W_HUGE_BOX)
+    wd, wi = knn_block_tables_reference(pos, box3, float("inf"), 3)
+    tkind, tp, tx, ty = _water_transform("linear")
+    wr = ws.apply_transform(tkind, wd, tp, tx, ty)
+    same = (torch.equal(tables[1], wi) and torch.equal(tables[0].view(torch.int32),
+                                                       wd.view(torch.int32))
+            and torch.equal(tables[2].view(torch.int32), wr.view(torch.int32)))
+    say(f"[water] tables [{frames},{n}] k=3, linear: bit for bit against the plain "
+        f"version: {same}")
+    if not same:
+        raise AssertionError(f"water tables at N={n} differ from their plain version")
+    kw = _water_kw()
+    args = (pos, *tables, *state, law, 0, box3)
+    got = ws.water_sweep(*args, **kw)
+    want = ws.water_sweep_reference(*args, **kw)
+    _k7_check(f"linear R={W_HUGE_REPLICAS} B={frames} N={n}", pos, tables, state, law,
+              got, want, 0, box3, kw)
 
 
 def phase_water(card: str):
     """The water deployment end to end through the port's kmc_water main:
     a small run held against the CPU, then N=216 at R=8192 over 1024
-    frames and N=1728 (its 57-point table) over 512 frames, K5 + K7 each."""
+    frames and N=1728 (its 57-point table) over 512 frames, K5 + K7 each;
+    then past the earlier K7's 19,370 sites: K5 and K7 held against their
+    plain versions at N=20000, and the CLI run there (R=256, 16 frames)."""
     _water_cuda_vs_cpu()
     paths = {W216: _drive_water(W216, write_water_inputs(WORK, W_SITES, 1024, W_REPLICAS),
                                 card, W_SITES, 1024, W_REPLICAS)}
     paths[W1728] = _drive_water(
         W1728, write_water_inputs(WORK, W_BIG_SITES, 512, W_REPLICAS, interp=True),
         card, W_BIG_SITES, 512, W_REPLICAS)
+    import torch
+
+    _water_past_the_old_limit(torch.device("cuda", 0))
+    paths[WHUGE] = _drive_water(
+        WHUGE, write_water_inputs(WORK, W_HUGE_SITES, W_HUGE_FRAMES, W_HUGE_REPLICAS),
+        card, W_HUGE_SITES, W_HUGE_FRAMES, W_HUGE_REPLICAS)
     return paths
 
 
@@ -2707,7 +2943,7 @@ def _host_ranges():
             (ts, "topk_tables_verlet", VERLET_RANGE, "call"),
             (ts, "in_neighbour_lists", LISTS_RANGE, "call"),
             (knn, "cell_lists", CELLS_RANGE, "call"),
-            (kns, "sparse_plan_for", "sparse_plan", "call"),
+            (kns, "device_plan", "device_plan", "call"),
             (driver.Simulation, "_fused_post", "fused_post", "call"),
             (driver.Simulation, "_emit_fused", "emit_rows", "gen")]
 
@@ -2765,7 +3001,7 @@ def _idle_report(all_events, device_events, main_kernel):
     `main_kernel`, between its first and last launch, and after; for the
     first two, the time of each host range of :func:`_host_ranges` that
     overlaps the idle time (ranges nest: run_block holds verlet_tables, which
-    holds sparse_plan) and the idle time that no range covers. Returns text."""
+    holds device_plan) and the idle time that no range covers. Returns text."""
     host = [e for e in all_events if e.get("ph") == "X" and "dur" in e
             and e.get("cat") in ("cpu_op", "user_annotation", "cuda_runtime")]
     t_begin = min(e["ts"] for e in host)
@@ -2870,7 +3106,9 @@ def phase_profile(card: str):
     # packing of the tables and its loop
     k5 = ("knn_full_kernel", "knn_cells_kernel", "knn_bin_kernel")
     dense = {"K1": ("kmc_sweep_streamed_kernel",), "K2": ("pairwise_kernel",)}
-    knn = {"K5": k5, "K6": ("knn_sparse_kernel",)}
+    # K6: its kernel and the six of its plan
+    knn = {"K5": k5, "K6": ("knn_sparse_kernel", *(f"sparse_{p}_kernel" for p in (
+        "site", "scan", "bucket", "rank", "box", "list")))}
     fresh = write_inputs(WORK, frames=1024, replicas=REPLICAS)
     runs = [("fresh, host-sized lists", fresh, dense), ("fresh", fresh, dense),
             ("fresh again", fresh, dense),
@@ -2879,7 +3117,7 @@ def phase_profile(card: str):
              dense),
             ("supercell", write_inputs(WORK, frames=512, replicas=SC_REPLICAS,
                                        topk="supercell"),
-             {"K4": ("topk_sweep_kernel",), "K5": k5}),
+             {"K4": ("topk_sweep_kernel",), **knn}),
             ("box4", write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4"),
              {"K4": ("topk_sweep_kernel",), **knn}),
             ("water", water_cfg, {"K7": ("water_sweep_kernel", "water_prefix_kernel",
@@ -2955,9 +3193,9 @@ def main() -> int:
                          "torch.profiler and print where the device time "
                          "goes")
     ap.add_argument("--k4-before", metavar="CSRC",
-                    help="also build the K4, K5 and K7 of the parent tree's "
+                    help="also build the K2, K4 and K6 of the parent tree's "
                          "csrc/ directory (e.g. from git archive), hold this "
-                         "tree's K5 and K7 to them bit for bit and time the "
+                         "tree's K2 and K6 to them bit for bit and time the "
                          "three in turns with this tree's (K4 also without "
                          "its staged first evaluation)")
     opts = ap.parse_args()
@@ -2990,7 +3228,7 @@ def main() -> int:
 
     libs = before() if before else None
     phase_rng(dev)
-    k2 = phase_k2(dev)
+    k2 = phase_k2(dev, libs)
     k1 = phase_k1(dev)
     k3 = phase_k3(dev)
     k5 = phase_k5(dev, libs)

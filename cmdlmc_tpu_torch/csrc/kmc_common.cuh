@@ -34,15 +34,19 @@ __host__ __device__ inline float minimg(float d, float len) {
   return d - len * rintf(d / len);
 }
 
-// minimg(d, len) = d - len * rintf(d / len), with the division replaced by a
-// product with inv = 1 / len where that rounds the same: q = d * inv lies
-// within 2.5 ulps of d / len, so the two rintf agree unless q lies within
-// 1/16 of a half-integer (or |q| >= 2^16, where an ulp is 2^-7); those, and
-// NaN and inf, take the division. The result is bit-equal to minimg (K5, K7).
-__device__ __forceinline__ float minimg_rcp(float d, float len, float inv) {
+// minimg(d, len) = d - len * rintf(d / len), bit-equal, with the division
+// replaced by a product with inv = 1 / len where that rounds the same:
+// q = d * inv lies within 3 ulps of the rounded d / len (|q - d / len| <= 2
+// ulps, and d / len rounds by half an ulp), so the two rintf agree unless a
+// half-integer lies within 3 ulps of q. Only then, or for NaN and inf, does
+// it divide: |frac(q) - 1/2| <= |q| 2^-20 (over 8 ulps of q; every q from
+// 2^22 on, whose ulp is 1/2 or more). A wider window (1/16 of a
+// half-integer) sent one lane in eight there per axis, so nearly every warp
+// of 32 differing lanes divided; this one almost never does (K2, K5-K7).
+__device__ __forceinline__ float minimg_near(float d, float len, float inv) {
   const float q = d * inv;
   float r = rintf(q);
-  if (!(fabsf(q - r) < 0.4375f && fabsf(q) < 65536.f)) r = rintf(d / len);
+  if (!(fabsf(fabsf(q - r) - 0.5f) > fabsf(q) * 0x1p-20f)) r = rintf(d / len);
   return d - len * r;
 }
 

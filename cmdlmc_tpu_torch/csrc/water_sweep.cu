@@ -17,7 +17,7 @@
 //     frames in order, so each row has the reference's additions in the
 //     reference's order (kmc_common.cuh::step_prefix) and its bits; it loads
 //     eight frames ahead and takes the minimum images without a division
-//     (kmc_common.cuh::minimg_rcp, bit-equal to minimg).
+//     (kmc_common.cuh::minimg_near, bit-equal to minimg).
 //   * water_pack_kernel: each site's K entries of topd, resc and topi in one
 //     48-byte record per frame ([B, N, 3] float4), so that a replica reads
 //     its site's row in two 32-byte sectors, not 3 K scattered ones (the
@@ -245,14 +245,14 @@ __global__ void water_prefix_kernel(const float* __restrict__ pos,
   float s = s_in[t], q = prev[t];
   int b = 0;
   // eight frames' positions loaded, and their moves' minimum images taken,
-  // ahead of the additions (minimg_rcp: minimg's bits without a division)
+  // ahead of the additions (minimg_near: minimg's bits without a division)
   for (; b + 8 <= B; b += 8) {
     float p[8], d[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) p[u] = __ldg(pos + (b + u) * row + t);
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      d[u] = minimg_rcp(p[u] - q, len, inv);
+      d[u] = minimg_near(p[u] - q, len, inv);
       q = p[u];
     }
 #pragma unroll
@@ -263,7 +263,7 @@ __global__ void water_prefix_kernel(const float* __restrict__ pos,
   }
   for (; b < B; ++b) {
     const float p = __ldg(pos + b * row + t);
-    s = s + minimg_rcp(p - q, len, inv);
+    s = s + minimg_near(p - q, len, inv);
     s_tab[b * row + t] = s;
     q = p;
   }

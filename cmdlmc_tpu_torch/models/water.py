@@ -109,21 +109,13 @@ def init_water_states(generator: torch.Generator, n_replicas: int, n_sites: int,
     )
 
 
-def water_unsupported_reason(model: WaterModel,
-                             n_sites: int | None = None) -> str | None:
+def water_unsupported_reason(model: WaterModel) -> str | None:
     """None if the fused kernel runs this model, else why not (the JAX
     package's ``water_fused_supported`` rules: an orthorhombic cell, a law
     the kernel knows, n_atoms 3 or 4, a linear, ramp or interpolated
-    transform with at most MAX_INTERP_POINTS points; and, given the site
-    count, ``ws.MAX_SITES``, the limit of an earlier K7 whose prefix sum
-    took 12 bytes of shared memory per site, kept until larger runs are
-    checked: ROADMAP A16)."""
+    transform with at most MAX_INTERP_POINTS points). The site count is not
+    limited: K7 reads the site prefix sum from a table in device memory."""
     scan = "the scan model is not ported yet (ROADMAP A12)"
-    if n_sites is not None and n_sites > ws.MAX_SITES:
-        return (f"{n_sites} sites exceed the water path's {ws.MAX_SITES}, the limit "
-                f"of an earlier water kernel whose site prefix sum ({12 * n_sites} "
-                f"bytes here) had to fit in a block's shared memory, kept until "
-                f"larger runs are checked (ROADMAP A16); {scan}")
     if not model.cell.orthorhombic:
         return f"the water kernel needs an orthorhombic cell; {scan}"
     if ks.law_kind(model.law) is None:
@@ -185,7 +177,7 @@ def run_water_block_fused(model: WaterModel, states: WaterState,
     R = states.site.shape[0]
     positions = positions_block.to(torch.float32)
     N = positions.shape[1]
-    reason = water_unsupported_reason(model, N)
+    reason = water_unsupported_reason(model)
     if reason:
         raise NotImplementedError(reason)
     if tile is None:

@@ -55,8 +55,10 @@ _SIGNATURES = {
     + [_P, _P, _P, _I],
     "cmdlmc_knn_bin": [_P, _I, _I] + [ctypes.c_double] * 3 + [_I] * 3
     + [_F, ctypes.c_double] + [_P] * 5 + [_I],
-    "cmdlmc_knn_sparse": [_P, _I, _I, _I] + [_F] * 4 + [_P, _P] + [_I] * 5
+    "cmdlmc_knn_sparse": [_P, _I, _I, _I] + [_F] * 4 + [_P] * 3 + [_I] * 6
     + [_P, _P, _P, _I],
+    "cmdlmc_sparse_plan": [_P, _I, _I] + [ctypes.c_double] * 3 + [_I, _I, _F, _I, _I, _F]
+    + [_P] * 7 + [_I],
     "cmdlmc_topk_sweep_plan": [_I] * 5 + [ctypes.POINTER(_LL)],
     "cmdlmc_topk_sweep": (
         [_P] * 20 + [_LL] + [_I] * 12 + [_F, _F, ctypes.c_uint32]

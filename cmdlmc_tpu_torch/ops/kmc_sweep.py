@@ -45,8 +45,6 @@ _LAW_KIND = {
 # the logical RNG tile (PERF.md, PR 7: the fastest of 2, 4, 8 and 16 at
 # R=1024, B=100 on the H100).
 WARPS_PER_BLOCK = 16
-# Opt-in shared memory per block of an H100 (and H200).
-SMEM_OPTIN_H100 = 232448
 
 
 def law_kind(law) -> int | None:

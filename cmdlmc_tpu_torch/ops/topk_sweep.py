@@ -10,9 +10,10 @@ Stage 1 (:func:`topk_tables`) builds per frame the tables [B, K, N]:
 indices, int32) and ``resc``: the law already applied to the rescaled
 distance (``precompute_law``, 0 at invalid slots), or the rescaled distance
 itself where the residence-time blend puts the law inside the event loop. An
-orthorhombic cell takes ``ops/knn_sparse.py`` (kernel K6 on the card) from
-``SPARSE_MIN_N`` sites on where its plan prunes enough, else
-``ops/knn_tables.py`` (kernel K5 on the card), plain versions on the CPU; a
+orthorhombic cell takes ``ops/knn_sparse.py`` (kernel K6 over a plan built
+on the device) where ``knn_sparse.sparse_route`` takes it (from
+``SPARSE_MIN_N`` = 864 sites and 3 bins an axis), else ``ops/knn_tables.py``
+(kernel K5 on the card), plain versions on the CPU; a
 triclinic cell takes ``model.shared``, the counterpart of the JAX package's
 XLA build. :func:`topk_tables_verlet` freezes the candidate ids between
 drift-triggered rebuilds (Verlet candidate reuse) and recomputes the
@@ -79,19 +80,15 @@ def topk_tables(model, positions_block: torch.Tensor, precompute_law: bool):
     """Stage 1: (topd f32, topi i32, resc f32), each [B, K, N] with
     K = min(k, N - 1). The transformation sees the 1e6 fill of invalid
     slots, as the JAX package's builds do. An orthorhombic cell's tables
-    come from K6 over the block's sparse plan where ``sparse_plan_for``
-    gives one (from SPARSE_MIN_N sites on, one fetch of the block to build
-    it), else from K5: the JAX package's dispatch; both give the same
-    tables."""
+    come from K6 over the block's device plan where ``sparse_route``
+    takes it (a rule of N and the bins per axis: no fetch), else from K5;
+    both give the same tables."""
     pos = positions_block.to(torch.float32)
     B, N, _ = pos.shape
     k = min(model.k, N - 1)
     if model.cell.orthorhombic:
-        plan = knn_sparse.sparse_plan_for(pos, model.box,
-                                          model.host_cutoff + model.host_buffer)
-        if plan is not None:
-            topd, topi = knn_sparse.knn_sparse_tables(pos, model.box, model.cutbuf,
-                                                      k, plan)
+        if knn_sparse.sparse_route(N, model.box, model.cutbuf):
+            topd, topi = knn_sparse.knn_sparse_tables(pos, model.box, model.cutbuf, k)
         else:
             topd, topi = knn_block_tables(pos, model.box, model.cutbuf, k)
         resc = model.transform(topd) if model.transform is not None else topd

@@ -41,12 +41,6 @@ T_NONE, T_LINEAR, T_RAMP, T_INTERP = 0, 1, 2, 3
 # masked lerp in the TPU kernel); the port keeps the JAX package's gate
 MAX_INTERP_POINTS = 1024
 
-# The most sites the water path takes: the limit of an earlier K7, which
-# kept the site prefix sum (12 N bytes) in each block's shared memory. K7
-# now reads the prefix from a table in global memory and has no such limit;
-# the refusal stays until the CLI's larger runs are checked (ROADMAP A16).
-MAX_SITES = ks.SMEM_OPTIN_H100 // 12
-
 # CUDA threads per block of K7's event loop (8 lanes a replica). The loop
 # has no barrier, so narrow blocks spread the replicas over every SM
 # (PERF.md times 32 to 256 at R=8192). The draws do not depend on it.

@@ -21,6 +21,8 @@ from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
 from cmdlmc_tpu_torch.rates.laws import Fermi, FermiAngle
 from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

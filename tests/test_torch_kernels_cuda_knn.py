@@ -17,6 +17,8 @@ import torch
 from test_torch_kernels_cuda import dev
 from test_torch_kernels_cuda_water import _k7_setup
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

@@ -23,6 +23,8 @@ from cmdlmc_tpu_torch.topo.models import AnglePairRates, PairRates
 
 from test_torch_kernels_cuda import _setup, dev
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 INT_KEYS = ("occ", "labels", "sites", "ev_count", "trunc")

@@ -17,6 +17,8 @@ from cmdlmc_tpu_torch.rates.laws import Fermi
 
 from test_torch_kernels_cuda import _setup, dev
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -195,8 +197,8 @@ def test_k6_equals_k5(dev):
     walk = np.cumsum(rng.normal(scale=0.05, size=(6, 3000, 3)), axis=0)
     pos = torch.from_numpy((base[None] + walk).astype(np.float32)).to(dev)
     for rc, tc in ((kns.RC, kns.TC), (512, 512), (32, 64)):
-        plan = kns.sparse_plan_for(pos, (40.0,) * 3, 5.0, min_n=0, max_ratio=1.0,
-                                   rc=rc, tc=tc)
+        plan = kns.SparsePlan(*kns.plan_sparse(pos.cpu().numpy(), (40.0,) * 3, 5.0,
+                                               rc=rc, tc=tc), rc, tc)
         assert (plan.lists.shape[1] < plan.n_ch) == (rc < 512)
         for k in (8, 16):
             got = kns.knn_sparse_tables(pos, (40.0,) * 3, 5.0, k, plan)

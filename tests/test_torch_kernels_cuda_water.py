@@ -12,6 +12,8 @@ import torch
 
 from test_torch_kernels_cuda import dev
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

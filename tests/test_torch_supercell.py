@@ -4,7 +4,9 @@
   cubic and triclinic;
 * the plain version of kernel K6 (``ops/knn_sparse.py``) against the JAX
   package's B6 in interpret mode over the same plan (N=200, k=6,
-  rc = tc = 64, as tests/ops/test_knn_sparse.py sets it): indices exact,
+  rc = tc = 64, as tests/ops/test_knn_sparse.py sets it), and over the
+  port's device plan (``test_torch_sparse_plan.py`` holds that plan
+  further): indices exact,
   distances within an ulp (rtol 2.4e-7: the JAX kernel's sum of squares is
   contracted into multiply-adds by XLA's CPU backend, the port rounds each
   operation, as K5's test bounds it); and against the port's K5 plain
@@ -108,6 +110,11 @@ def test_knn_sparse_reference_matches_jax_kernel():
     assert np.any(got_d.numpy() == knn.BIG)
     k5_d, k5_i = knn.knn_block_tables(torch.from_numpy(pos), (box,) * 3, rcut, 6)
     assert torch.equal(got_d, k5_d) and torch.equal(got_i, k5_i)
+    # over the port's device plan (built here by its plain version) too
+    dev_d, dev_i = kns.knn_sparse_tables(torch.from_numpy(pos), (box,) * 3, rcut, 6,
+                                         kns.device_plan(torch.from_numpy(pos), (box,) * 3,
+                                                         rcut, rc=16, tc=32))
+    assert torch.equal(dev_d, got_d) and torch.equal(dev_i, got_i)
     assert kns.knn_sparse_tables.launches == 0  # CPU tensors: plain version
 
 
@@ -151,12 +158,13 @@ def test_knn_sparse_equals_k5(make):
 
 
 def test_topk_tables_takes_the_sparse_plan(monkeypatch):
-    """topk_tables takes K6's wrapper wherever sparse_plan_for gives a plan
-    (here with the gate opened at 64 sites), K5's below SPARSE_MIN_N; the
-    tables are the same."""
+    """topk_tables asks knn_sparse.sparse_route (a rule of N and the bins per
+    axis, given the block's N, the box and cutoff + buffer) and takes K6's
+    wrapper over the device plan it builds where the rule says so, K5's
+    elsewhere; the tables are the same."""
     _, tm = _models("topk")
     pos = torch.from_numpy(_walk(3, 0.01, 5))
-    calls = []
+    calls, asked = [], []
 
     def counting(fn):
         def wrapped(*args, **kwargs):
@@ -165,13 +173,16 @@ def test_topk_tables_takes_the_sparse_plan(monkeypatch):
         return wrapped
 
     monkeypatch.setattr(kns, "knn_sparse_tables", counting(kns.knn_sparse_tables))
+    monkeypatch.setattr(kns, "device_plan", counting(kns.device_plan))
     monkeypatch.setattr(ts, "knn_block_tables", counting(ts.knn_block_tables))
+    route = kns.sparse_route
+    assert not route(N, tm.box, tm.cutbuf)  # 64 sites
     want = ts.topk_tables(tm, pos, precompute_law=True)
-    plan_for = kns.sparse_plan_for
-    monkeypatch.setattr(kns, "sparse_plan_for", lambda *a, **kw: plan_for(
-        *a, min_n=0, max_ratio=1.0, rc=16, tc=32))
+    monkeypatch.setattr(kns, "sparse_route",
+                        lambda n, box, cutbuf: asked.append((n, tuple(box), cutbuf)) or True)
     got = ts.topk_tables(tm, pos, precompute_law=True)
-    assert calls == ["knn_block_tables", "knn_sparse_tables"]
+    assert calls == ["knn_block_tables", "knn_sparse_tables", "device_plan"]
+    assert asked == [(N, tuple(tm.box), tm.cutbuf)]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

@@ -9,8 +9,9 @@
   package's ``init_water_states`` prints, at each print frame, replica 0's
   site after that frame, and the block-end jumps and correction, as the JAX
   CLI's scan branch does (rows equal but the fps column).
-* The two keyword loaders, the device and configuration refusals (K7's
-  shared-memory limit on the site count among them), and no jax import.
+* The two keyword loaders, the device and configuration refusals, the
+  acceptance of more sites than an earlier K7 could take, and no jax
+  import.
 
 The cases come from ``test_torch_water.py``.
 """
@@ -222,22 +223,19 @@ def test_cli_refusals(tmp_path, capsys):
         tkw.load_configfile(str(tmp_path / "n_atoms.cfg"), config_name="KMCWater"), "cpu"))
 
 
-def test_refuses_past_the_kernel_site_limit(tmp_path):
-    """water_unsupported_reason refuses a trajectory of more sites than an
-    earlier K7 could take (its site prefix sum, 12 bytes a site, in the
-    H100's opt-in shared memory per block: 19,370; kept until larger runs
-    are checked, ROADMAP A16), and the CLI raises NotImplementedError naming
-    ROADMAP A12 rather than launching."""
-    assert ws.MAX_SITES == 19370 and 12 * ws.MAX_SITES <= 232448 < 12 * (ws.MAX_SITES + 1)
+def test_accepts_more_sites_than_the_earlier_kernel(tmp_path, monkeypatch):
+    """The model and the CLI take more than 19,370 sites, the limit of an
+    earlier K7 whose site prefix sum (12 bytes a site) had to fit in a
+    block's shared memory: water_unsupported_reason has no site count, and
+    the CLI hands a one-frame trajectory of 19,371 oxygens to the water
+    tables (stopped there, so K5's plain version never runs at that N on
+    the CPU; ``chip_smoke.py`` runs the CLI past it on the card)."""
+    earlier_limit = 232448 // 12
+    assert earlier_limit == 19370
     cfg, _ = _write_water_inputs(tmp_path, frames=1, chunk=1)
     settings = tkw.load_configfile(str(cfg), config_name="KMCWater")
-    model = tcli.build_model(settings, "cpu")
-    assert twm.water_unsupported_reason(model) is None
-    assert twm.water_unsupported_reason(model, ws.MAX_SITES) is None
-    reason = twm.water_unsupported_reason(model, ws.MAX_SITES + 1)
-    assert "shared memory" in reason and "A12" in reason
-    # one frame of MAX_SITES + 1 oxygens on a lattice: the CLI's refusal
-    n = ws.MAX_SITES + 1
+    assert twm.water_unsupported_reason(tcli.build_model(settings, "cpu")) is None
+    n = earlier_limit + 1
     side = int(np.ceil(n ** (1 / 3)))
     grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
     traj = tmp_path / "big.xyz"
@@ -247,8 +245,21 @@ def test_refuses_past_the_kernel_site_limit(tmp_path):
         f"pbc {BOX} {BOX} {BOX}", f"pbc {side * 2.9} {side * 2.9} {side * 2.9}")
     (tmp_path / "big.cfg").write_text(big)
     settings = tkw.load_configfile(str(tmp_path / "big.cfg"), config_name="KMCWater")
-    with pytest.raises(NotImplementedError, match="A12"):
+    assert twm.water_unsupported_reason(tcli.build_model(settings, "cpu")) is None
+
+    class Reached(Exception):
+        pass
+
+    shapes = []
+
+    def tables(positions, *args):
+        shapes.append(tuple(positions.shape))
+        raise Reached
+
+    monkeypatch.setattr(ws, "water_tables", tables)
+    with pytest.raises(Reached):
         tcli.kmc_water_main(settings, out=io.StringIO(), device="cpu")
+    assert shapes == [(1, n, 3)]
 
 
 def test_water_modules_import_no_jax():
