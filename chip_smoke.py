@@ -18,12 +18,18 @@ nonzero without the final ``ok`` line:
    kernel before the row lists (PARENT_DIGESTS); timed at the main path's
    launch, with the launch plan (list lengths counted on the card, shared
    memory, where the lists live, blocks per SM) and the bound from the
-   least work (`sweep_work`) beside the dense count;
+   least work (`sweep_work`) beside the dense count; then with jump
+   statistics (20 bins and the jump matrix) at that launch, in bench.py's
+   cube and in a monoclinic cell (the triclinic minimum image): histograms
+   and exposure equal to the plain version's on the replicas that agree
+   (the exposure bit for bit), the matrix counting every jump, every output
+   equal to the same launch without statistics, timed in turns with it;
 6. K3 (in-kernel-W event loop) against its plain version for the law kinds
    0-4, with whole rows at N=224 (the route's largest N; the lists in
    global memory), and against the recorded digests; against stage 1 + K1
    on the same state, at 2-16 warps per block, and the two routes timed at
-   8, 16 and 128 RNG tiles;
+   8, 16 and 128 RNG tiles; kind 0 at the route's launch with jump
+   statistics, held and timed as K1's;
 7. K5 (K-nearest tables) against its plain version at [B=100 and 256,
    N=144] (k=8, and k=4 for hydronium; the full scan) and [B=64, N=4608]
    (k=8; the cell route), timed there with the bound from the pairs the
@@ -47,7 +53,9 @@ nonzero without the final ``ok`` line:
    the events per replica-frame and the bound from the least work beside
    the count of a full evaluation per event; with ``--k4-before CSRC`` also
    the parent's K4 (from the parent's csrc/) and this K4 without its staged
-   first evaluation, timed in turns with it;
+   first evaluation, timed in turns with it; the top-K launch with jump
+   statistics (the events' table distances, the exposure over the K slots),
+   held and timed as K1's;
 9. the water tables (K5 with no cutoff, then the transform) bit for bit
    against their plain version at [256, 216] (the full scan) and
    [256, 1728] (the verified cell search); K7 (the water event loop and its
@@ -67,9 +75,14 @@ nonzero without the final ``ok`` line:
    supercell (4608 sites, 3072 protons, 4096 replicas; K6 + K4), and the
    box x4 supercell (bench.py's cell with box_multiplier = 4, 4, 4: 9216
    sites, 6144 protons, 4096 replicas, Verlet candidate reuse by the auto
-   rule; K6 + K4), each with its own launch counts; before them small
-   dense, angle, top-K, hydronium and box x2 reuse runs are held against
-   the same runs on the CPU;
+   rule; K6 + K4), each with its own launch counts; then bench.py's
+   deployment at R=16384 with ``jumpstat_bins = 20`` and a jump-matrix file
+   (K2 + K1; its rows equal those of the run without statistics bit for
+   bit, its saved matrix sums to its events), bench.py's sites in a
+   monoclinic cell at R=16384 (K1 with the triclinic minimum image, no K2)
+   and the ``jumpstat`` CLI at R=1024 (K3) with ``--fit``; before them small
+   dense, jumpstat, monoclinic, angle, top-K, hydronium and box x2 reuse
+   runs are held against the same runs on the CPU;
 11. the water deployment of ``tools/bench_water.py`` end to end through the
    port's ``kmc_water`` main (K5 + K7): 216 O sites at 8192 replicas over
    1024 frames and 1728 sites (its 57-point conversion table) over 512
@@ -88,10 +101,10 @@ nonzero without the final ``ok`` line:
    and water trajectories timed alone.
 
 With ``--k4-before CSRC`` (a copy of the parent tree's csrc/, e.g. from
-``git archive``) the parent's K2, K4, K5, K6 and K7 are built beside this
-tree's; K2, K5, K6 and K7 are held to them bit for bit in this run (K6
-against the parent's K6 over the host plan) and the five timed in turns
-with them.
+``git archive``) the parent's K1, K2, K3, K4, K5, K6 and K7 are built
+beside this tree's; K1, K2, K3, K5, K6 and K7 are held to them bit for bit
+in this run (K6 against the parent's K6 over the same plan) and all seven
+timed in turns with them.
 
 Before the last line it prints one JSON object with each kernel's launch
 count in the end-to-end run of its path, its error against the plain
@@ -110,6 +123,7 @@ import hashlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +159,14 @@ BX_SITES, BX_PROTONS, BX_BOX = N_SITES * 64, N_PROTONS * 64, BOX * 4
 # a site count past K4's shared-memory layout (16 N bytes > 232,448), so
 # its global layout runs
 WIDE_SITES = N_SITES * 104
+
+# Jump statistics: [Output] jumpstat_bins = 20 over the schema's default
+# jumpstat_range, with the jump matrix ([Engine] jumpmatrix_filename)
+STATS_BINS, STATS_RANGE = 20, (2.0, 3.0)
+# the monoclinic deployment: bench.py's sites (uniform in fractional
+# coordinates) in a monoclinic cell whose smallest height, 14.0 A, keeps
+# cutoff + buffer (5.0) under half of it, as the skew gate asks
+MONO_VECTORS = ((BOX, 0.0, 0.0), (3.0, 14.0, 0.0), (0.0, 0.0, BOX))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit),
 # for the least time the card could take for a kernel's work.
@@ -192,25 +214,32 @@ def device_ms(fn, reps: int = 20, names=None) -> float:
     work (kernels, memsets, copies) its calls launched, or of the kernels
     whose names hold one of `names`, in a torch.profiler trace of `reps`
     calls after a warm call. Unlike cuda_ms it leaves out the host's time
-    between launches, which bounds the small shapes."""
+    between launches, which bounds the small shapes. Where two traces in a
+    row hold no device work it says so and returns cuda_ms's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     WORK.mkdir(parents=True, exist_ok=True)
     trace = WORK / "device_ms_trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") and "dur" in e
-              and (names is None or any(n in e.get("name", "") for n in names))]
-    if not events:
-        raise AssertionError("the profiler saw no device work")
-    return sum(e["dur"] for e in events) / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") and "dur" in e
+                  and (names is None or any(n in e.get("name", "") for n in names))]
+        if events:
+            return sum(e["dur"] for e in events) / 1e3 / reps
+    # CUPTI now and then hands the profiler no device records for a window:
+    # time the same calls with CUDA events, which include the host's gaps
+    ms, _ = cuda_ms(fn, reps)
+    say(f"[device_ms] two profiler windows held no device work; {ms:.4f} ms per "
+        "call from CUDA events (host gaps included)")
+    return ms
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -440,6 +469,45 @@ def _k1_inputs(dev, replicas, frames, n=N_SITES, protons=N_PROTONS, box=BOX,
             rep.clock.event_count)
 
 
+def _k1_stats_inputs(dev, mono=False):
+    """The main path's launch (R=16384, B=100) with the stage-1 distances:
+    bench.py's sites in its cube, or (``mono``) uniform in fractional
+    coordinates of the MONO_VECTORS cell, seed 0, 0.03 A of jitter. Returns
+    the sweep's arguments, the distances, the model and the sweep's
+    geometry keywords."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.core.cell import Cell
+    from cmdlmc_tpu_torch.engine.lattice import init_replicas
+    from cmdlmc_tpu_torch.ops.kmc_sweep_streamed import dense_tables
+    from cmdlmc_tpu_torch.rates.laws import Fermi
+    from cmdlmc_tpu_torch.topo.models import PairRates
+
+    if not mono:
+        args = _k1_inputs(dev, replicas=REPLICAS, frames=PRINT_FREQ)
+        model = PairRates(Cell.cubic([BOX] * 3, device=dev),
+                          Fermi(a=FERMI[0], b=FERMI[1], c=FERMI[2]).to(dev),
+                          CUTOFF, BUFFER)
+        return args, dense_tables(model, args[1], nbins=STATS_BINS)[1], model, {}
+    rng = np.random.RandomState(0)
+    base = rng.uniform(0, 1, size=(N_SITES, 3)) @ np.asarray(MONO_VECTORS)
+    block = (base[None] + rng.normal(scale=0.03, size=(PRINT_FREQ, N_SITES, 3))
+             ).astype(np.float32)
+    cell = Cell.triclinic(MONO_VECTORS, device=dev)
+    model = PairRates(cell, Fermi(a=FERMI[0], b=FERMI[1], c=FERMI[2]).to(dev),
+                      CUTOFF, BUFFER)
+    pos = torch.from_numpy(block).to(dev)
+    w, dist = dense_tables(model, pos, nbins=STATS_BINS)
+    ens = init_replicas(torch.Generator().manual_seed(0), REPLICAS, N_SITES,
+                        N_PROTONS, pos[0], device=dev)
+    rep = ens.replicas
+    args = (w, pos, ens.prev_pos, ens.site_disp, rep.occ, rep.proton_of_site.float(),
+            rep.site_of_proton, rep.t_last_jump, rep.disp_base,
+            rep.clock.u_remaining, rep.clock.event_count)
+    return args, dist, model, {"geometry": model.geometry}
+
+
 INT_KEYS = ("occ", "labels", "sites", "ev_count", "trunc")
 STATE_KEYS = ("occ", "labels", "sites", "tlast", "disp_base", "u_rem", "ev_count")
 
@@ -517,22 +585,32 @@ def _smallest_margin(w, occ, u, frame_idx, tile_id, rin, kw):
 
 def _partings(n_frames, state0, step, margin, keys=STATE_KEYS, cap=64,
               int_keys=INT_KEYS):
-    """Step every replica frame by frame through a kernel and its plain
-    version from the plain version's state (``step(f, prev, s, state)``
-    returns both outputs for frame f alone; ``state`` in the order of
-    ``keys``), and for each replica that parts in a frame (up to `cap`) give
+    """Step every replica frame by frame through a kernel and through its
+    plain version, each from its own state (``step(f, prev, s, state)``
+    returns both outputs for frame f alone from one state; ``state`` in the
+    order of ``keys``). A replica parts at the frame after which its integer
+    state differs, having agreed before; for each (up to `cap`) give
     (replica, frame, smallest decision margin, decision) from
-    ``margin(f, state, r)``."""
-    prev, s = state0[:2]
-    state = list(state0[2:])
-    found = []
+    ``margin(f, state, r)`` on the plain version's state. Each follows its
+    own state because a decision can flip on float state that drifted apart
+    over earlier frames (u_rem an ulp apart), which a replay of both from
+    one shared state does not show."""
+    import torch
+
+    k_run = p_run = list(state0)
+    found, agree = [], None
     for f in range(n_frames):
-        got, want = step(f, prev, s, state)
-        for r in (~_agreeing(got, want, int_keys)).nonzero()[:, 0].tolist():
+        got, want = step(f, p_run[0], p_run[1], p_run[2:])
+        if not all(torch.equal(a, b) for a, b in zip(k_run, p_run)):
+            got = step(f, k_run[0], k_run[1], k_run[2:])[0]
+        now = _agreeing(got, want, int_keys)
+        before = now.clone().fill_(True) if agree is None else agree
+        for r in (before & ~now).nonzero()[:, 0].tolist():
             if len(found) < cap:
-                found.append((r, f, *margin(f, state, r)))
-        prev, s = want["prev_pos"], want["site_disp"]
-        state = [want[k] for k in keys]
+                found.append((r, f, *margin(f, p_run[2:], r)))
+        agree = before & now
+        k_run = [got["prev_pos"], got["site_disp"], *(got[k] for k in keys)]
+        p_run = [want["prev_pos"], want["site_disp"], *(want[k] for k in keys)]
     return found
 
 
@@ -793,6 +871,89 @@ def _same_bits(tag, label, out):
         "digests bit for bit")
 
 
+def _stats_kw(R, dev, seed=7) -> dict:
+    """The sweeps' jump-statistics keywords: STATS_BINS bins over
+    STATS_RANGE, the jump matrix, and histograms that do not start at zero
+    (noise from `seed`), so the kernels' carry of their inputs is held too."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    hist = torch.from_numpy(rng.randint(0, 9, (R, STATS_BINS)).astype(np.int32))
+    expo = torch.from_numpy(rng.randint(0, 99, (R, STATS_BINS)).astype(np.float32))
+    return dict(jump_hist=hist.to(dev), exposure=expo.to(dev), nbins=STATS_BINS,
+                hist_range=STATS_RANGE, track_matrix=True)
+
+
+def _hold_stats(tag, label, got, want, ev0):
+    """Hold a kernel's jump statistics to its plain version's on the replicas
+    whose integer state agrees (:func:`_hold` bounds the others): histograms
+    equal, the exposure equal bit for bit; the matrix counts every fired
+    jump in both and, where no replica parted, is the plain version's.
+    """
+    import torch
+
+    same = _agreeing(got, want)
+    for k in ("jump_hist", "exposure"):
+        if not torch.equal(got[k][same], want[k][same]):
+            raise AssertionError(f"{tag} {label}: {k} differs from the plain version")
+    for name, out in (("kernel", got), ("plain", want)):
+        events = int((out["ev_count"] - ev0).sum())
+        if int(out["jump_matrix"].sum()) != events or events == 0:
+            raise AssertionError(f"{tag} {label}: the {name} jump matrix sums to "
+                                 f"{int(out['jump_matrix'].sum())}, not {events} events")
+    if bool(same.all()) and not torch.equal(got["jump_matrix"], want["jump_matrix"]):
+        raise AssertionError(f"{tag} {label}: the jump matrix differs")
+    say(f"[{tag}] {label}: jump histograms and exposure equal on the "
+        f"{int(same.sum())} agreeing replicas (exposure bit for bit), the matrix "
+        f"counts all {int(got['jump_matrix'].sum())} jumps"
+        f"{' and equals the plain one' if bool(same.all()) else ''}; "
+        f"{int(got['jump_hist'].sum())} binned jumps, "
+        f"{float(got['exposure'].sum()):.0f} frames of exposure in all")
+
+
+def _same_trajectory(tag, label, on, off):
+    """The statistics draw nothing: the kernel with them lands where the
+    kernel without them does, every output bit for bit."""
+    import torch
+
+    keys = OUT_KEYS + (("tlast_site",) if "tlast_site" in on else ())
+    differ = [k for k in keys if not torch.equal(on[k], off[k])]
+    if differ:
+        raise AssertionError(f"{tag} {label}: with statistics {differ} differ "
+                             "from the run without them")
+    say(f"[{tag}] {label}: with statistics every output equals the run without "
+        "them bit for bit")
+
+
+def stats_bound(R, B, N, nbins, events, cands, table_bytes) -> dict:
+    """Bound of the work the statistics add to a sweep: per replica-frame
+    the exposure's `cands` candidates (a range test, the bin's subtract and
+    multiply, an add: 4 each), per event the jump length (5) and its bin (4);
+    bytes: the distances the exposure reads (`table_bytes`), both
+    histograms read once and written once, the [N, N] int32 matrix
+    written."""
+    flops = 4.0 * R * B * cands + 9.0 * events
+    nbytes = table_bytes + 2 * 2 * 4.0 * R * nbins + 4.0 * N * N
+    return bound(flops, nbytes)
+
+
+def _in_turns(fns, reps=3) -> dict:
+    """Time each named function in turns, a, b, ..., then in the reverse
+    order (CUDA events, `reps` calls each); {name: [ms, ms]} and the
+    outputs of the last calls."""
+    times, outs = {n: [] for n in fns}, {}
+    for name in [*fns, *reversed(list(fns))]:
+        ms, outs[name] = cuda_ms(fns[name], reps=reps)
+        times[name].append(ms)
+    return times, outs
+
+
+def _turns_text(times) -> str:
+    return "; ".join(f"{n} " + ", ".join(f"{t:.3f}" for t in ts_) + " ms"
+                     for n, ts_ in times.items())
+
+
 # Whole rows: cutoff + buffer past half the box diagonal and a Fermi law
 # that stays above float32's smallest number there, so every pair has a
 # rate and every list is the whole row (too long for shared memory)
@@ -839,11 +1000,16 @@ def _plan_text(plan, caps) -> str:
             f"{plan['blocks_per_sm']} blocks per SM")
 
 
-def phase_k1(dev):
+def phase_k1(dev, libs=None):
     """K1 against kmc_sweep_streamed_reference on the same W, and against
     the recorded digests, at every case of :func:`_k1_cases` (the whole-row
     case must put its lists in global memory); the main path's launch shape
-    timed too."""
+    timed too, and with `libs` (:func:`_k4_before_libraries`) in turns with
+    the parent's K1. Then K1 with jump statistics (STATS_BINS bins and the
+    matrix) at that shape, in bench.py's cube and in the MONO_VECTORS cell,
+    against its plain version (:func:`_hold_stats`) and against itself
+    without them (the same trajectory bit for bit), timed in turns with
+    statistics off."""
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 
     worst = 0.0
@@ -885,6 +1051,54 @@ def phase_k1(dev):
         f"evaluation, {work['rows']:.2f} rows of {work['vacant']:.2f} vacant "
         f"terms summed again per event); counting every pair, "
         f"{dense['bound_ms']:.4f} ms")
+    if libs:
+        this = lambda: kss.kmc_sweep_streamed(*args, 0, box3, 0, **kw)  # noqa: E731
+
+        def parent():
+            with _library(libs["parent_dense"]):
+                return this()
+
+        times, outs = _in_turns({"parent": parent, "this": this})
+        if _digests(outs["parent"]) != _digests(got):
+            raise AssertionError(f"K1 {label}: the parent's K1 gives other bits")
+        say(f"[k1] {label}: the parent's K1 gives the same bits; in turns: "
+            f"{_turns_text(times)}")
+
+    for mono in (False, True):
+        tag = "monoclinic" if mono else "cube"
+        s_args, dist, model, geo = _k1_stats_inputs(dev, mono)
+        s_box = None if mono else box3
+        stats = _stats_kw(REPLICAS, dev)
+        s_kw = {**kw, **geo}
+        on = kss.kmc_sweep_streamed(*s_args, 0, s_box, 0, dist_block=dist, **s_kw,
+                                    **stats)
+        plain_on = kss.kmc_sweep_streamed_reference(*s_args, 0, s_box, 0,
+                                                    dist_block=dist, **s_kw, **stats)
+        slabel = f"{tag}, {STATS_BINS} bins and the matrix, R={REPLICAS} B={PRINT_FREQ}"
+        worst = max(worst, _k1_check(slabel, s_args, on, plain_on, 0, s_box, s_kw))
+        _hold_stats("k1", slabel, on, plain_on, s_args[10])
+        off = kss.kmc_sweep_streamed(*s_args, 0, s_box, 0, **s_kw)
+        _same_trajectory("k1", slabel, on, off)
+        if mono:
+            say(f"[k1] {slabel}: every decision and output as the plain version's "
+                "with the triclinic minimum image")
+            continue
+        times, _ = _in_turns({
+            "off": lambda: kss.kmc_sweep_streamed(*s_args, 0, s_box, 0, **s_kw),
+            "on": lambda: kss.kmc_sweep_streamed(*s_args, 0, s_box, 0,
+                                                 dist_block=dist, **s_kw, **stats)})
+        s_events = int((on["ev_count"] - s_args[10]).sum())
+        added = stats_bound(REPLICAS, PRINT_FREQ, N_SITES, STATS_BINS, s_events,
+                            work["pairs"], 4.0 * PRINT_FREQ * N_SITES ** 2)
+        whole = sweep_bound(REPLICAS, PRINT_FREQ, N_SITES, N_PROTONS, s_events, work,
+                            w_bytes=w_bytes, extra_flops=4.0 * REPLICAS * PRINT_FREQ
+                            * work["pairs"] + 9.0 * s_events,
+                            extra_bytes=4.0 * PRINT_FREQ * N_SITES ** 2
+                            + 16.0 * REPLICAS * STATS_BINS + 4.0 * N_SITES ** 2)
+        say(f"[k1] {slabel}: in turns: {_turns_text(times)}; bound with statistics "
+            f"{whole['bound_ms']:.4f} ms ({whole['bound_by']}), of the added work "
+            f"alone {added['bound_ms']:.5f} ms ({added['bound_by']}: the [B, N, N] "
+            "distances read, the histograms in and out, the matrix written)")
     # no single PyTorch call runs this event loop
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": None}
@@ -985,14 +1199,48 @@ def _k3_check(label, model, pos, pgrp, state, got, want, frame0, kw) -> float:
                                    _dense_margin(w, frame0, kw)))
 
 
-def phase_k3(dev):
+def _k3_stats(dev, libs, model, pos, pgrp, state, kw, off, work):
+    """K3 at the in-kernel route's launch with jump statistics: held to its
+    plain version and to its own run without them (`off`), timed in turns
+    with statistics off and, with `libs`, with the parent's K3."""
+    stats = _stats_kw(INKERNEL_REPLICAS, dev)
+    label = (f"kind {kw['kind']} R={INKERNEL_REPLICAS} B={PRINT_FREQ}, {STATS_BINS} "
+             "bins and the matrix")
+    on = _k3_call(model, pos, pgrp, state, 0, **kw, **stats)
+    want = _k3_call(model, pos, pgrp, state, 0, plain=True, **kw, **stats)
+    _k3_check(label, model, pos, pgrp, state, on, want, 0, kw)
+    _hold_stats("k3", label, on, want, state[8])
+    _same_trajectory("k3", label, on, off)
+    fns = {"off": lambda: _k3_call(model, pos, pgrp, state, 0, **kw),
+           "on": lambda: _k3_call(model, pos, pgrp, state, 0, **kw, **stats)}
+    if libs:
+        def parent():
+            with _library(libs["parent_dense"]):
+                return fns["off"]()
+        fns["parent"] = parent
+    times, outs = _in_turns(fns)
+    if libs and _digests(outs["parent"]) != _digests(off):
+        raise AssertionError("K3: the parent's K3 gives other bits")
+    s_events = int((on["ev_count"] - state[8]).sum())
+    added = stats_bound(INKERNEL_REPLICAS, PRINT_FREQ, N_SITES, STATS_BINS, s_events,
+                        work["pairs"], 0.0)
+    say(f"[k3] {label}: in turns: {_turns_text(times)}"
+        f"{' (the parent: the same bits)' if libs else ''}; bound of the added "
+        f"work {added['bound_ms']:.5f} ms ({added['bound_by']}; {s_events} events)")
+
+
+def phase_k3(dev, libs=None):
     """K3 against kmc_sweep_reference: at the in-kernel route's launch shape
     (R=1024, B=100; kind 0 with bench.py's Fermi law and kind 4 with the
     angle gate of the variant deployment), timed there; at R=256, B=16 for
     kinds 1-3; with whole rows at the route's largest N (224; the lists in
     global memory). Then K3 against stage 1 + K1 on the same state (kind 0,
     the two routes' agreement), K3 at 2, 4, 8 and 16 warps per block, and
-    the two routes timed at 8, 16 and 128 RNG tiles."""
+    the two routes timed at 8, 16, 32, 64 and 128 RNG tiles, without and
+    with jump statistics. Kind 0 at the launch
+    shape also with jump statistics (STATS_BINS bins and the matrix) against
+    the plain version and against itself without them, timed in turns with
+    statistics off, and with `libs` K3 timed in turns with the parent's."""
     import torch
 
     from cmdlmc_tpu_torch.engine import fused
@@ -1035,6 +1283,7 @@ def phase_k3(dev):
             # no single PyTorch call runs this event loop
             result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
             k0 = (model, pos, state, kw, got)
+        _k3_stats(dev, libs, model, pos, pgrp, state, kw, got, work)
     for kind in (1, 2, 3):
         model, pos, pgrp, state = _k3_inputs(dev, 256, 16, kind, seed=kind)
         kw = _k3_kw(model)
@@ -1092,27 +1341,34 @@ def phase_k3(dev):
         f"{w_}: {t:.3f} ms ({n} blocks per SM)" for w_, (t, n) in times.items())
         + f" (default {ks.WARPS_PER_BLOCK}); results identical")
 
-    # route timing at 8, 16 and 128 RNG tiles, in turns: K3, stage 1 + K1,
-    # both again in the other order
-    for r in (R, 2 * R, REPLICAS):
+    # route timing at 8, 16, 32, 64 and 128 RNG tiles, in turns: K3, stage
+    # 1 + K1, both again in the other order; without and with jump statistics
+    for r in (R, 2 * R, 4 * R, 8 * R, REPLICAS):
         if r == R:
             model, pos, state = k0[:3]
         else:
             model, pos, _, state = _k3_inputs(dev, r, B, 0)
+        for stats in ({}, _stats_kw(r, dev)):
 
-        def inkernel():
-            return _k3_call(model, pos, None, state, 0, **kw)
+            def inkernel():
+                return _k3_call(model, pos, None, state, 0, **kw, **stats)
 
-        def streamed():
-            return kss.kmc_sweep_streamed(kss.dense_tables(model, pos), pos,
-                                          *state, 0, model.box, 0, **kw1)
+            def streamed():
+                if not stats:
+                    return kss.kmc_sweep_streamed(kss.dense_tables(model, pos), pos,
+                                                  *state, 0, model.box, 0, **kw1)
+                w_, dist = kss.dense_tables(model, pos, nbins=STATS_BINS)
+                return kss.kmc_sweep_streamed(w_, pos, *state, 0, model.box, 0,
+                                              dist_block=dist, **kw1, **stats)
 
-        a1, _ = cuda_ms(inkernel, reps=3)
-        b1, _ = cuda_ms(streamed, reps=3)
-        b2, _ = cuda_ms(streamed, reps=3)
-        a2, _ = cuda_ms(inkernel, reps=3)
-        say(f"[route] R={r} ({r // 128} tiles) B={B} kind 0: in-kernel K3 "
-            f"{a1:.3f} / {a2:.3f} ms, stage 1 + K1 {b1:.3f} / {b2:.3f} ms")
+            a1, _ = cuda_ms(inkernel, reps=3)
+            b1, _ = cuda_ms(streamed, reps=3)
+            b2, _ = cuda_ms(streamed, reps=3)
+            a2, _ = cuda_ms(inkernel, reps=3)
+            say(f"[route] R={r} ({r // 128} tiles) B={B} kind 0"
+                f"{f', {STATS_BINS} bins and the matrix' if stats else ''}: "
+                f"in-kernel K3 {a1:.3f} / {a2:.3f} ms, stage 1 + K1 {b1:.3f} / "
+                f"{b2:.3f} ms")
     return result
 
 
@@ -1550,33 +1806,6 @@ def knn_sparse_ops(plan, n: int) -> float:
     return float(unordered * (PAIRWISE_OPS + 1) + compares), unordered / (n * (n - 1) / 2)
 
 
-# The launch function of the parent's K6 (the host plan's 128-column tiles,
-# one block each), as ops/build.py declared it, for --k4-before.
-PARENT_SPARSE_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
-                           + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p] * 3 + [ctypes.c_int])
-
-
-def _parent_k6(lib, pos, box3, cutbuf, k, perm, lists, plan):
-    """The parent's K6 over its host plan (`perm` and `lists` already on the
-    card), launched as its wrapper launched it."""
-    import numpy as np
-    import torch
-
-    from cmdlmc_tpu_torch.ops import build
-
-    B, N, _ = pos.shape
-    topd = torch.empty((B, k, N), dtype=torch.float32, device=pos.device)
-    topi = torch.empty((B, k, N), dtype=torch.int32, device=pos.device)
-    n_ct, maxa = lists.shape
-    build.check(lib.cmdlmc_knn_sparse(
-        pos.data_ptr(), B, N, int(k), *(float(x) for x in box3), float(np.float32(cutbuf)),
-        perm.data_ptr(), lists.data_ptr(), n_ct, maxa, plan.n_ch, plan.rc, plan.tc,
-        topd.data_ptr(), topi.data_ptr(), build.stream_of(pos), pos.device.index or 0),
-        "parent K6")
-    return topd, topi
-
-
 def _same_plan(a, b) -> bool:
     import torch
 
@@ -1597,9 +1826,9 @@ def phase_k6(dev, libs=None):
     the JAX package (RC=64, TC=128), the bound from the pairs in neighbouring
     bins of width cutoff + buffer (no plan at all: K6's bound in the result,
     as K5's) and from this plan's kept pairs; K5 held bit for bit to the digests of the K5 before its cell
-    route. With `libs` the parent's K6 over its host plan is held to K6 bit
-    for bit and timed in turns with K6's kernel (parent, this, this,
-    parent)."""
+    route. With `libs` the parent's K6 (this tree's interface) over the same
+    plan is held to K6 bit for bit and timed in turns with it (parent,
+    this, this, parent)."""
     import torch
 
     from cmdlmc_tpu_torch.ops import knn_sparse as kns
@@ -1670,26 +1899,20 @@ def phase_k6(dev, libs=None):
             f"{1e3 * host_s:.1f} ms); {parted} index partings against the plain version "
             f"(ties within an ulp), max distance error {err:.3e}")
         if libs:
-            hperm = torch.from_numpy(host.perm.astype("int32")).to(dev)
-            hlists = torch.from_numpy(host.lists.astype("int32")).to(dev)
-            ptimes = {"parent": [], "this": []}
-            parent = None
-            for name in ("parent", "this", "this", "parent"):
-                if name == "parent":
-                    t, parent = cuda_ms(lambda: _parent_k6(libs["parent_sparse"], pos, box3,
-                                                           CUTBUF, k, hperm, hlists, host),
-                                        reps=reps)
-                else:
-                    t, _ = cuda_ms(lambda: kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan),
-                                   reps=reps)
-                ptimes[name].append(t)
+            def this_k6():
+                return kns.knn_sparse_tables(pos, box3, CUTBUF, k, plan)
+
+            def parent_k6():
+                with _library(libs["parent_sparse"]):
+                    return this_k6()
+
+            ptimes, outs = _in_turns({"parent": parent_k6, "this": this_k6}, reps=reps)
+            parent = outs["parent"]
             if not (torch.equal(parent[1], i6)
                     and torch.equal(parent[0].view(torch.int32), d6.view(torch.int32))):
                 raise AssertionError(f"K6 {shape} differs from the parent's K6")
-            say(f"[k6] {shape}: equals the parent's K6 over its host plan bit for bit; "
-                "kernels in turns: " + "; ".join(
-                    f"{name} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
-                    for name, v in ptimes.items()))
+            say(f"[k6] {shape}: equals the parent's K6 over the same plan bit for bit; "
+                f"kernels in turns: {_turns_text(ptimes)}")
         say(f"[k6] {shape}: in turns: " + "; ".join(
             f"{name} " + ", ".join(f"{t:.4f}" for t in v) + " ms"
             for name, v in turns.items())
@@ -1970,7 +2193,8 @@ def full_topk_bound(R, B, N, P, K, events, blend, table_bytes) -> dict:
 def _k4_before_libraries(parent_csrc):
     """Start the nvcc builds of the kernels timed beside this tree's: the
     parent's ``topk_sweep.cu`` (K4), ``knn_sparse.cu`` (K6), ``pairwise.cu``
-    (K2), ``knn_tables.cu`` (K5) and ``water_sweep.cu`` (K7) from
+    (K2), ``knn_tables.cu`` (K5), ``water_sweep.cu`` (K7) and
+    ``kmc_sweep_streamed.cu`` with ``kmc_sweep.cu`` (K1, K3) from
     `parent_csrc` (a copy of an earlier tree's csrc/, e.g. from ``git
     archive``; its K5 and K7 have this tree's interface), each on its own,
     this tree's K4
@@ -1983,10 +2207,12 @@ def _k4_before_libraries(parent_csrc):
     out.mkdir(parents=True, exist_ok=True)
     csrc = Path(parent_csrc)
     jobs = {"parent": ([csrc / "topk_sweep.cu", csrc / "errors.cu"], []),
-            "parent_sparse": ([csrc / "knn_sparse.cu"], []),
+            "parent_sparse": ([csrc / "knn_sparse.cu", csrc / "errors.cu"], []),
             "parent_pairwise": ([csrc / "pairwise.cu"], []),
             "parent_knn": ([csrc / "knn_tables.cu", csrc / "errors.cu"], []),
             "parent_water": ([csrc / "water_sweep.cu", csrc / "errors.cu"], []),
+            "parent_dense": ([csrc / "kmc_sweep_streamed.cu", csrc / "kmc_sweep.cu",
+                              csrc / "errors.cu"], []),
             "unstaged": ([build.CSRC_DIR / "topk_sweep.cu", build.CSRC_DIR / "errors.cu"],
                          ["-DCMDLMC_TOPK_UNSTAGED"])}
     for lanes in (4, 16):  # this K7 with other lanes per replica than its 8
@@ -2009,25 +2235,102 @@ def _k4_before_libraries(parent_csrc):
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     say(f"[before] {name} build: {line.strip()}")
             libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-        for lib in (libs["parent"], libs["unstaged"]):  # this tree's K4 interface
-            for name in ("cmdlmc_topk_sweep", "cmdlmc_topk_sweep_plan"):
-                getattr(lib, name).argtypes = build._SIGNATURES[name]
-            lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
-            lib.cmdlmc_error_string.restype = ctypes.c_char_p
-        for name, fns in (("water_lanes4", ("cmdlmc_water_sweep",)),
+        for name, fns in (("unstaged", ("cmdlmc_topk_sweep", "cmdlmc_topk_sweep_plan")),
+                          ("water_lanes4", ("cmdlmc_water_sweep",)),
                           ("water_lanes16", ("cmdlmc_water_sweep",)),
                           ("parent_water", ("cmdlmc_water_sweep",)),
-                          ("parent_knn", ("cmdlmc_knn_bin", "cmdlmc_knn_tables"))):
+                          ("parent_knn", ("cmdlmc_knn_bin", "cmdlmc_knn_tables")),
+                          ("parent_dense", ("cmdlmc_kmc_sweep_streamed_caps",
+                                            "cmdlmc_kmc_sweep_caps"))):
             lib = libs[name]
             for fn in fns:
                 getattr(lib, fn).argtypes = build._SIGNATURES[fn]
             lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
             lib.cmdlmc_error_string.restype = ctypes.c_char_p
-        libs["parent_sparse"].cmdlmc_knn_sparse.argtypes = PARENT_SPARSE_SIGNATURE
+        # the parent's K1, K3 and K4 take no statistics
+        libs["parent"] = _ParentSweeps(libs["parent"])
+        libs["parent_dense"] = _ParentSweeps(libs["parent_dense"])
+        # the parent's K6 has this tree's interface
+        libs["parent_sparse"].cmdlmc_knn_sparse.argtypes = build._SIGNATURES["cmdlmc_knn_sparse"]
+        libs["parent_sparse"].cmdlmc_error_string.argtypes = [ctypes.c_int]
+        libs["parent_sparse"].cmdlmc_error_string.restype = ctypes.c_char_p
         libs["parent_pairwise"].cmdlmc_pairwise.argtypes = build._SIGNATURES["cmdlmc_pairwise"]
         return libs
 
     return wait
+
+
+class _ParentSweeps:
+    """The parent tree's K1, K3 and K4 behind this tree's C entry points,
+    for the wrappers under :func:`_library`. The parent's entries have no
+    jump statistics and no triclinic K1, and its K3 takes the law's six
+    parameters by value: the statistics' arguments are dropped (they must
+    be off) and the rest forwarded. Other symbols are the library's own."""
+
+    _F, _I, _LL, _P = ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    _SIGNATURES = {
+        "cmdlmc_kmc_sweep_streamed": [_P] * 14 + [_I] * 9 + [_P, _P, _LL]
+        + [_F, ctypes.c_uint32, _F, _F, _F, _P, _I],
+        "cmdlmc_kmc_sweep_streamed_plan": [_I, _I] + [ctypes.POINTER(_LL)] * 2
+        + [ctypes.POINTER(_I)],
+        "cmdlmc_kmc_sweep": [_P] * 14 + [_I] * 9 + [_P, _P, _LL, _I, _F, ctypes.c_uint32]
+        + [_F] * 10 + [_P, _I],
+        "cmdlmc_kmc_sweep_plan": [_I] * 3 + [ctypes.POINTER(_LL)] * 2 + [ctypes.POINTER(_I)],
+        "cmdlmc_topk_sweep": [_P] * 20 + [_LL] + [_I] * 12 + [_F, _F, ctypes.c_uint32]
+        + [ctypes.POINTER(_F)] * 2 + [_P, _I],
+        "cmdlmc_topk_sweep_plan": [_I] * 5 + [ctypes.POINTER(_LL)],
+    }
+
+    def __init__(self, lib):
+        self._lib = lib
+        for name, argtypes in self._SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+        if hasattr(lib, "cmdlmc_sweep_list_bytes"):
+            lib.cmdlmc_sweep_list_bytes.argtypes = [ctypes.c_int] * 3
+            lib.cmdlmc_sweep_list_bytes.restype = ctypes.c_longlong
+        lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
+        lib.cmdlmc_error_string.restype = ctypes.c_char_p
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    @staticmethod
+    def _off(stats_flag, tri=0):
+        if stats_flag or tri:
+            raise ValueError("the parent's kernels take no statistics and no "
+                             "triclinic cell")
+
+    def cmdlmc_kmc_sweep_streamed(self, *a):
+        # a[31:42]: dist, hist, expo, jm, stats, nbins, lo, hi, scale, tri, geom
+        self._off(a[35], a[40])
+        return self._lib.cmdlmc_kmc_sweep_streamed(*a[:31], *a[42:])
+
+    def cmdlmc_kmc_sweep_streamed_plan(self, n, stats, nbins, tri, device, *out):
+        self._off(stats, tri)
+        return self._lib.cmdlmc_kmc_sweep_streamed_plan(n, device, *out)
+
+    def cmdlmc_sweep_list_bytes(self, n, cap, ccap, stats):
+        self._off(stats)
+        return self._lib.cmdlmc_sweep_list_bytes(n, cap, ccap)
+
+    def cmdlmc_kmc_sweep(self, *a):
+        # a[33]: the law's parameters; a[34:42]: hist ... scale
+        self._off(a[37])
+        return self._lib.cmdlmc_kmc_sweep(*a[:33], *a[33], *a[42:])
+
+    def cmdlmc_kmc_sweep_plan(self, n, warps, stats, nbins, device, *out):
+        self._off(stats)
+        return self._lib.cmdlmc_kmc_sweep_plan(n, warps, device, *out)
+
+    def cmdlmc_topk_sweep(self, *a):
+        # a[38:46]: hist ... scale
+        self._off(a[41])
+        return self._lib.cmdlmc_topk_sweep(*a[:38], *a[46:])
+
+    def cmdlmc_topk_sweep_plan(self, r, n, k, blend, nbins, device, out):
+        self._off(nbins)
+        return self._lib.cmdlmc_topk_sweep_plan(r, n, k, blend, device, out)
 
 
 @contextlib.contextmanager
@@ -2069,6 +2372,48 @@ def _k4_before(libs, model, pos, tables, state, frame0, kw, got):
                      for name, ts_ in times.items())
     return (f"{text} (replicas whose integer state equals this K4's: parent "
             f"{same['parent']}, unstaged {same['unstaged']} of {state[2].shape[0]})")
+
+
+# replicas of K4's statistics check at the supercell shapes (the state's
+# first ones; the plain version's time bounds it)
+K4_STATS_CUT = 512
+
+
+def _k4_stats(dev, model, pos, tables, state, frame0, kw, off, timed=True):
+    """K4 at a top-K launch with jump statistics (the events' table
+    distances, the exposure over the K slots, the matrix): held to its plain
+    version and to its own run without them (`off`) and, where `timed`,
+    timed in turns with statistics off. Not `timed`, the check runs on the
+    first K4_STATS_CUT replicas (and `off` is run on them here): the
+    supercells' plan (32 warps, the staged first evaluation, the global
+    layout), whose shared memory the statistics' counters shift."""
+    if not timed and state[2].shape[0] > K4_STATS_CUT:
+        state = state[:2] + [t[:K4_STATS_CUT] for t in state[2:]]
+        off = _k4_call(model, pos, tables, state, frame0, **kw)
+    R, B, N = state[2].shape[0], pos.shape[0], pos.shape[1]
+    K = tables[0].shape[1]
+    stats = _stats_kw(R, dev)
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    plan = ts.sweep_plan(R, N, K, kw["blend"], dev, STATS_BINS)
+    label = (f"topk k={K} R={R} B={B} N={N}, {STATS_BINS} bins and the matrix, "
+             f"plan {plan}")
+    on = _k4_call(model, pos, tables, state, frame0, **kw, **stats)
+    want = _k4_call(model, pos, tables, state, frame0, plain=True, **kw, **stats)
+    _k4_check(label, model, pos, tables, state, on, want, frame0, kw)
+    _hold_stats("k4", label, on, want, state[9])
+    _same_trajectory("k4", label, on, off)
+    if not timed:
+        return
+    times, _ = _in_turns({
+        "off": lambda: _k4_call(model, pos, tables, state, frame0, **kw),
+        "on": lambda: _k4_call(model, pos, tables, state, frame0, **kw, **stats)})
+    s_events = int((on["ev_count"] - state[9]).sum())
+    added = stats_bound(R, B, N, STATS_BINS, s_events, N_PROTONS * K,
+                        4.0 * B * K * N)
+    say(f"[k4] {label}: in turns: {_turns_text(times)}; bound of the added work "
+        f"{added['bound_ms']:.5f} ms ({added['bound_by']}: the table distances "
+        f"read, the histograms in and out, the matrix written; {s_events} events)")
 
 
 def phase_k4(dev, libs=None):
@@ -2114,6 +2459,8 @@ def phase_k4(dev, libs=None):
         worst = max(worst, _k4_check(label, model, pos, tables, state, got, want,
                                      frame0, kw))
         events = int(want["ev_count"].sum() - state[9].sum())
+        if name in ("supercell", "box4", "wide"):
+            _k4_stats(dev, model, pos, tables, state, frame0, kw, got, timed=False)
         if name == "sparse":
             valid = tables[0] < 1.0e5
             mixed = float((valid[:, 0] & ~valid[:, -1]).float().mean())
@@ -2137,6 +2484,7 @@ def phase_k4(dev, libs=None):
         if name == "topk":
             # no single PyTorch call runs this event loop
             result = {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+            _k4_stats(dev, model, pos, tables, state, frame0, kw, got)
     result["max_abs_err"] = worst
     return result
 
@@ -2418,7 +2766,8 @@ def phase_k7(dev, libs=None):
 
 
 def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
-                 stale: bool = False, angle: bool = False, topk: str = "") -> Path:
+                 stale: bool = False, angle: bool = False, topk: str = "",
+                 jumpstat: bool = False, mono: bool = False) -> Path:
     """Synthetic trajectory (seed 0, as bench.py builds it) and an INI. With
     ``angle`` the trajectory also holds N_P P atoms (uniform in the box,
     jittered like the O sites) and the INI is the angle deployment:
@@ -2431,14 +2780,18 @@ def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
     "box4" is bench.py's cell as a random walk, replicated by
     box_multiplier = BOX_MULT (max_neighbors = TOPK_K, nbr_reuse at its
     default, auto); "box2" the same cell replicated 2 x 2 x 2 with
-    nbr_reuse = on."""
+    nbr_reuse = on. ``jumpstat`` adds ``[Output] jumpstat_bins`` = STATS_BINS
+    (the default range) and a ``jumpmatrix_filename`` beside the INI;
+    ``mono`` puts bench.py's sites uniform in fractional coordinates of the
+    MONO_VECTORS cell (AtomBoxMonoclinic; seed 0, 0.03 A of jitter)."""
     import numpy as np
 
     workdir.mkdir(parents=True, exist_ok=True)
     supercell = topk == "supercell"
     mult = {"box4": BOX_MULT, "box2": (2, 2, 2)}.get(topk, (1, 1, 1))
     walk = supercell or mult != (1, 1, 1)
-    tag = "angle_" if angle else "sc_" if supercell else "walk_" if walk else ""
+    tag = ("angle_" if angle else "sc_" if supercell else "walk_" if walk
+           else "mono_" if mono else "")
     n_sites, protons, box = ((SC_SITES, SC_PROTONS, SC_BOX) if supercell
                              else (N_SITES, N_PROTONS, BOX))
     traj = workdir / f"traj_{tag}{frames}.xyz"
@@ -2447,6 +2800,11 @@ def write_inputs(workdir: Path, frames: int, replicas: int, sweeps=None,
         if walk:
             block = _walk_block(n_sites, frames, box)
             names = np.array(["O"] * n_sites)
+        elif mono:
+            base = rng.uniform(0, 1, size=(N_SITES, 3)) @ np.asarray(MONO_VECTORS)
+            names = np.array(["O"] * N_SITES)
+            block = (base[None] + np.stack([rng.normal(scale=0.03, size=base.shape)
+                                            for _ in range(frames)])).astype(np.float32)
         else:
             base = rng.uniform(0, BOX, size=(N_SITES, 3)).astype(np.float32)
             pbase = rng.uniform(0, BOX, size=(N_P if angle else 0, 3)).astype(np.float32)
@@ -2489,14 +2847,19 @@ relaxation_time = {RELAX}
     else:
         topology, law = "type = NeighborTopology\ndonor_atoms = O", "type = Fermi"
     copies = mult[0] * mult[1] * mult[2]
-    name = f"run_{tag}{topk}{frames}_{replicas}{'_stale' if stale else ''}.ini"
+    name = (f"run_{tag}{topk}{frames}_{replicas}{'_stale' if stale else ''}"
+            f"{'_js' if jumpstat else ''}.ini")
     cfg = workdir / name
+    atombox = (f"type = AtomBoxCubic\nperiodic_boundaries = {box}, {box}, {box}"
+               if not mono else "type = AtomBoxMonoclinic\nperiodic_boundaries = "
+               + ", ".join(str(x) for v in MONO_VECTORS for x in v))
+    stats = (f"jumpstat_bins = {STATS_BINS}\n" if jumpstat else "")
+    matrix = (f"jumpmatrix_filename = {cfg.with_suffix('.npy')}" if jumpstat else "")
     cfg.write_text(f"""[Trajectory]
 filename = {traj}
 time_step = {DT}
 [AtomBox]
-type = AtomBoxCubic
-periodic_boundaries = {box}, {box}, {box}
+{atombox}
 box_multiplier = {", ".join(str(m) for m in mult)}
 [NeighborTopology]
 {topology}
@@ -2515,7 +2878,7 @@ time_step = {DT}
 type = ObservablesOutput
 print_frequency = {PRINT_FREQ}
 reset_frequency = 500
-[Engine]
+{stats}[Engine]
 replicas = {replicas}
 seed = 1
 block_size = {BLOCK}
@@ -2523,16 +2886,38 @@ max_events_per_frame = {MAX_EVENTS}
 {f"sweeps = {sweeps}" if sweeps else ""}
 {"stale_rates = on" if stale else ""}
 {"nbr_reuse = off" if supercell else "nbr_reuse = on" if topk == "box2" else ""}
+{matrix}
 """)
     return cfg
 
 
 def parse_rows(text: str):
+    """(header, observable rows, perf lines) of a run's output; the rows
+    stop at the jumpstat block (:func:`jumpstat_rows`)."""
     lines = text.splitlines()
     header = [ln for ln in lines if ln.startswith("#") and "Sweeps" in ln]
-    rows = [ln.split() for ln in lines if ln.strip() and not ln.startswith("#")]
+    end = next((i for i, ln in enumerate(lines) if ln.startswith("# jumpstat over")),
+               len(lines))
+    rows = [ln.split() for ln in lines[:end] if ln.strip() and not ln.startswith("#")]
     perf = [ln for ln in lines if ln.startswith("# perf:")]
     return header, rows, perf
+
+
+def jumpstat_rows(text: str, bins: int = STATS_BINS):
+    """The jumpstat block's rows (d, jumps, exposure, P(jump), omega) as
+    floats, checked: `bins` rows after its 7 comment lines, finite, some
+    jumps and exposure."""
+    import numpy as np
+
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("# jumpstat over"))
+    rows = np.array([ln.split() for ln in lines[start + 7:start + 7 + bins]],
+                    dtype=np.float64)
+    if rows.shape != (bins, 5) or not np.isfinite(rows).all():
+        raise AssertionError(f"jumpstat block malformed: {lines[start:start + 9]}")
+    if rows[:, 1].sum() <= 0 or rows[:, 2].sum() <= 0:
+        raise AssertionError("jumpstat block: no jumps or no exposure")
+    return rows
 
 
 def _counters():
@@ -2555,15 +2940,44 @@ def _counters():
 
 def _small_cuda_vs_cpu(label, cfg):
     """The same config and initial state on the card and on the CPU (plain
-    versions) must land in the same final state, but for near-ties."""
+    versions) must land in the same final state, but for near-ties; with
+    jump statistics their histograms on the replicas that agree too, and,
+    where every replica agrees, the saved jump matrices (each device's run
+    saves its own file)."""
+    import numpy as np
+    import torch
+
     from cmdlmc_tpu_torch import driver
 
-    finals = {}
+    finals, matrices = {}, {}
+    text = Path(cfg).read_text()
     for d in ("cuda", "cpu"):
-        finals[d] = driver.run_from_config(cfg, out=io.StringIO(), device=d).final_states
+        npy = Path(cfg).with_name(f"{Path(cfg).stem}_{d}.npy")
+        ini = Path(cfg).with_name(f"{Path(cfg).stem}_{d}.ini")
+        ini.write_text(re.sub(r"(?m)^jumpmatrix_filename = .*$",
+                              f"jumpmatrix_filename = {npy}", text))
+        finals[d] = driver.run_from_config(ini, out=io.StringIO(), device=d).final_states
+        if "jumpmatrix_filename" in text:
+            matrices[d] = np.load(npy)
     a, b = finals["cuda"].replicas, finals["cpu"].replicas
     same = ((a.site_of_proton.cpu() == b.site_of_proton).all(dim=1)
             & (a.clock.event_count.cpu() == b.clock.event_count))
+    for k in ("jump_hist", "opportunity_hist"):
+        if not torch.equal(getattr(a, k).cpu()[same], getattr(b, k)[same]):
+            raise AssertionError(f"small {label} run: {k} differs on cuda vs cpu")
+    if a.jump_hist.shape[-1] and int(a.jump_hist.sum()) == 0:
+        raise AssertionError(f"small {label} run: no jump binned")
+    if matrices:
+        events = int(a.clock.event_count.sum())
+        if int(matrices["cuda"].sum()) != events:
+            raise AssertionError(f"small {label} run: the card's jump matrix sums to "
+                                 f"{int(matrices['cuda'].sum())}, not {events}")
+        if bool(same.all()) and not np.array_equal(matrices["cuda"], matrices["cpu"]):
+            raise AssertionError(f"small {label} run: the jump matrix differs on "
+                                 "cuda vs cpu")
+        agree = " and equals the CPU run's" if bool(same.all()) else ""
+        say(f"[e2e] small {label} run: the saved jump matrix sums to the {events} "
+            f"events{agree}")
     n_diff, n = int((~same).sum()), same.numel()
     say(f"[e2e] small {label} run (N={a.occ.shape[1]}, R={n}): {n_diff} of {n} "
         f"replicas end differently on cuda vs cpu; events "
@@ -2614,6 +3028,7 @@ def _drive(label, cfg, card, frames, replicas, expect, refuse=(),
             f"{label}: expected launches of {expect} and none of {refuse}, "
             f"got {launches}")
     ev = sim.final_states.replicas.clock.event_count
+    _drive.last_events = int(ev.sum())
     say(f"[e2e] {label}: {len(rows)} rows, frames {int(vals[0, 0])}.."
         f"{int(vals[-1, 0])}, last Autocorr {vals[-1, 5]:.2f} Jumps "
         f"{vals[-1, 6]:.2f}; {int(ev.sum())} events in total")
@@ -2630,8 +3045,13 @@ def phase_end_to_end(card: str):
     R=1024 (K3, law kind 4) and R=4096 (stage 1 with the angle W + K1), the
     top-K and hydronium deployments at R=4096 (K5 + K4 each) and the top-K
     supercell at N=4608 (K6 + K4: the route takes K6 from 864 sites; none
-    of K1, K2, K3 in any of them)."""
+    of K1, K2, K3 in any of them). Then the jump statistics
+    (:func:`_drive_statistics`)."""
     _small_cuda_vs_cpu("dense", write_inputs(WORK, frames=64, replicas=256))
+    _small_cuda_vs_cpu("jumpstat", write_inputs(WORK, frames=64, replicas=256,
+                                                jumpstat=True))
+    _small_cuda_vs_cpu("monoclinic", write_inputs(WORK, frames=64, replicas=256,
+                                                  mono=True))
     _small_cuda_vs_cpu("angle", write_inputs(WORK, frames=64, replicas=256,
                                              angle=True))
     for topk in ("topk", "hydronium"):
@@ -2672,10 +3092,75 @@ def phase_end_to_end(card: str):
         refuse=(*dense, "knn_tables"),
         n_sites=SC_SITES, protons=SC_PROTONS)
     paths[BOX4] = _drive_box4(card)
+    paths.update(_drive_statistics(card))
     return paths
 
 
 BOX4 = "topk supercell N=9216 box x4 reuse"
+JS, MONO, JS_CLI = ("dense R=16384 jumpstat", "monoclinic R=16384",
+                    "jumpstat CLI R=1024")
+
+
+def _drive_statistics(card: str):
+    """The jump statistics end to end: bench.py's deployment at R=16384 with
+    STATS_BINS bins and the jump matrix (K2 + K1, no K3), whose rows must
+    equal those of the run without statistics bit for bit and whose saved
+    matrix must sum to the run's events; the monoclinic deployment at
+    R=16384 (K1 with the triclinic cell, no K2, no K3); and the jumpstat
+    CLI at R=1024 (K3) with --fit."""
+    import numpy as np
+
+    from cmdlmc_tpu_torch.cli import jumpstat
+
+    out = {}
+    cfg = write_inputs(WORK, frames=1024, replicas=REPLICAS, jumpstat=True)
+    out[JS] = _drive(JS, cfg, card, 1024, REPLICAS,
+                     expect=("kmc_sweep_streamed", "pairwise_cubic"),
+                     refuse=("kmc_sweep",))
+    text = (WORK / f"e2e_output_{JS.replace(' ', '_')}.txt").read_text()
+    plain = (WORK / "e2e_output_dense_R=16384.txt").read_text()
+    if parse_rows(text)[1] != parse_rows(plain)[1]:
+        raise AssertionError(f"{JS}: the rows differ from the run without statistics")
+    rows = jumpstat_rows(text)
+    matrix = np.load(cfg.with_suffix(".npy"))
+    events = int(_drive.last_events)
+    if int(matrix.sum()) != events or matrix.shape != (N_SITES, N_SITES):
+        raise AssertionError(f"{JS}: the saved matrix sums to {int(matrix.sum())}, "
+                             f"not the run's {events} events")
+    say(f"[e2e] {JS}: rows equal the run without statistics bit for bit; the "
+        f"saved {matrix.shape} matrix sums to the {events} events; "
+        f"{int(rows[:, 1].sum())} jumps binned, {rows[:, 2].sum():.1f} frames of "
+        f"exposure; omega(d) over the bins: "
+        + ", ".join(f"{d:.3f}: {w:.4g}" for d, w in rows[::4, [0, 4]]))
+    out[MONO] = _drive(MONO, write_inputs(WORK, frames=1024, replicas=REPLICAS,
+                                          mono=True),
+                       card, 1024, REPLICAS, expect=("kmc_sweep_streamed",),
+                       refuse=("kmc_sweep", "pairwise_cubic"))
+    cfg = write_inputs(WORK, frames=1024, replicas=INKERNEL_REPLICAS, sweeps=512)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        jumpstat.main([str(cfg), "--bins", str(STATS_BINS), "--range", "2.2", "3.0",
+                       "--fit"])
+    wall = time.perf_counter() - t0
+    out[JS_CLI] = {name: fn.launches for name, fn in counters.items()}
+    text = buf.getvalue()
+    (WORK / "e2e_output_jumpstat_cli.txt").write_text(text)
+    say(f"[e2e] {JS_CLI}: launches {out[JS_CLI]}; wall {wall:.2f} s ({card})")
+    if out[JS_CLI]["kmc_sweep"] <= 0 or out[JS_CLI]["kmc_sweep_streamed"]:
+        raise AssertionError(f"{JS_CLI}: expected K3 launches only, got {out[JS_CLI]}")
+    rows = jumpstat_rows(text)
+    at = text.find("# Fermi fit omega")
+    if at < 0:
+        raise AssertionError(f"{JS_CLI}: the Fermi fit did not run: {text[-300:]}")
+    fit = text[at:].splitlines()[:4]
+    say(f"[e2e] {JS_CLI}: {int(rows[:, 1].sum())} jumps binned; "
+        + "; ".join(ln[2:].strip() for ln in fit)
+        + f" (the run's law: a={FERMI[0]}, b={FERMI[1]}, c={FERMI[2]})")
+    return out
 
 
 def _drive_box4(card: str):
@@ -3193,11 +3678,11 @@ def main() -> int:
                          "torch.profiler and print where the device time "
                          "goes")
     ap.add_argument("--k4-before", metavar="CSRC",
-                    help="also build the K2, K4 and K6 of the parent tree's "
-                         "csrc/ directory (e.g. from git archive), hold this "
-                         "tree's K2 and K6 to them bit for bit and time the "
-                         "three in turns with this tree's (K4 also without "
-                         "its staged first evaluation)")
+                    help="also build the K1-K7 of the parent tree's csrc/ "
+                         "directory (e.g. from git archive), hold this "
+                         "tree's to them bit for bit where they must agree "
+                         "and time each in turns with this tree's (K4 also "
+                         "without its staged first evaluation)")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3229,8 +3714,8 @@ def main() -> int:
     libs = before() if before else None
     phase_rng(dev)
     k2 = phase_k2(dev, libs)
-    k1 = phase_k1(dev)
-    k3 = phase_k3(dev)
+    k1 = phase_k1(dev, libs)
+    k3 = phase_k3(dev, libs)
     k5 = phase_k5(dev, libs)
     k6 = phase_k6(dev, libs)
     k4 = phase_k4(dev, libs)

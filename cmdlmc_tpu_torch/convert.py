@@ -9,6 +9,9 @@ takes the JAX objects (or anything with the same fields) as they come.
 
 from __future__ import annotations
 
+import dataclasses
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -43,13 +46,11 @@ def neighbor_carry_from_fields(carry, k: int, device="cpu") -> NeighborCarry:
 def ensemble_from_numpy(ens, device="cpu", k: int | None = None) -> EnsembleState:
     """The port's EnsembleState from the fields of a JAX ``EnsembleState``;
     a neighbor carry comes over with its first ``k`` rows
-    (:func:`neighbor_carry_from_fields`). Jump histograms and the jump matrix
-    must be empty (ROADMAP A11)."""
+    (:func:`neighbor_carry_from_fields`). The jump histograms and the jump
+    matrix come over as they are (empty where the statistics are off; a
+    state without them gets them empty)."""
     rep = ens.replicas
-    for name in ("jump_hist", "opportunity_hist", "jump_matrix"):
-        field = getattr(rep, name, None)
-        if field is not None and np.asarray(field).size:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A11)")
+    R, N = np.shape(rep.occ)
     c = rep.clock
     f32, i32 = np.float32, np.int32
     clock = ClockState(
@@ -68,6 +69,9 @@ def ensemble_from_numpy(ens, device="cpu", k: int | None = None) -> EnsembleStat
         jumps=_t(rep.jumps, device, i32),
         disp_base=_t(rep.disp_base, device, f32),
         autocorr_ref=_t(rep.autocorr_ref, device, i32),
+        jump_hist=_t(_field(rep, "jump_hist", (R, 0)), device, i32),
+        opportunity_hist=_t(_field(rep, "opportunity_hist", (R, 0)), device, f32),
+        jump_matrix=_t(_field(rep, "jump_matrix", (R, 0, 0)), device, i32),
     )
     carry = getattr(ens, "nbr_carry", None)
     if carry is not None:
@@ -80,6 +84,27 @@ def ensemble_from_numpy(ens, device="cpu", k: int | None = None) -> EnsembleStat
         prev_pos=_t(ens.prev_pos, device, f32),
         nbr_carry=carry,
     )
+
+
+def _field(obj, name: str, empty_shape) -> np.ndarray:
+    value = getattr(obj, name, None)
+    return np.zeros(empty_shape) if value is None else np.asarray(value)
+
+
+def ensemble_to_numpy(ens: EnsembleState) -> SimpleNamespace:
+    """The inverse of :func:`ensemble_from_numpy`: the state's fields as
+    numpy arrays under the JAX package's names (``replicas``, its ``clock``,
+    ``site_disp``, ``prev_pos``; the neighbor carry is not included)."""
+    rep = ens.replicas
+
+    def arrays(obj, names):
+        return SimpleNamespace(**{n: getattr(obj, n).cpu().numpy() for n in names})
+
+    replicas = arrays(rep, [f.name for f in dataclasses.fields(rep)
+                            if f.name != "clock"])
+    replicas.clock = arrays(rep.clock, [f.name for f in dataclasses.fields(rep.clock)])
+    return SimpleNamespace(replicas=replicas, site_disp=ens.site_disp.cpu().numpy(),
+                           prev_pos=ens.prev_pos.cpu().numpy(), nbr_carry=None)
 
 
 def law_from_fields(law, device="cpu"):

@@ -25,6 +25,36 @@
 //   * at frame end the unused budget leaves u, and a replica that fired on
 //     every iteration counts one truncated frame.
 // `stale` (K1 only) reuses the frame-start rows and total inside the frame.
+//
+// Jump statistics and the cell are compile-time options (`STATS`, `TRI`),
+// so the default kernel (no statistics, an orthorhombic box) runs the code
+// it ran before them:
+//   * TRI (K1): the jump vector and the prefix step take the round-based
+//     triclinic minimum image of CellImage (h, h^-1), which is exact for
+//     vectors shorter than half the smallest cell height (the host's skew
+//     gate); without it the per-axis minimg of the box;
+//   * STATS: with nbins > 0, after each fired event lane 0 adds one to the
+//     replica's bin of the jump length sqrtf(((0 + jx^2) + jy^2) + jz^2) (B1
+//     and B2's association) where lo <= d < hi, and at each frame end, under
+//     the post-event occupancy and before the unused budget leaves u, the
+//     warp counts for every bin the pairs (i occupied, j vacant) of row i's
+//     list with W[i][j] > 0 and lo <= dist[i][j] < hi (the exposure): the
+//     lists then carry each entry's exposure bin beside its value (its
+//     histogram bin where W > 0 and the distance is in range, else NO_BIN),
+//     found once per block and frame as the lists are built, the warp's
+//     lanes walk the occupied rows' lists four entries at a time, and each
+//     warp keeps nbins integer counters in shared memory, added to the
+//     replica's float exposure once per frame and bin, as the TPU kernels
+//     add their per-frame sums (whole numbers below 2^24, so the same bits).
+//     The replica's histogram and exposure stay in the warp's shared memory
+//     across the launch (3 nbins words a warp with the counters), read at
+//     its start and written at its end, so no event or frame waits on a
+//     global read.
+//     The occupancy is 0 or 1 (the races never move a proton onto an
+//     occupied site), so the exposure is that count. With a jump matrix
+//     lane 0 adds one to [src][dst] of the launch's int32 [N, N] sum with
+//     an atomicAdd per fired event (no one-hot product).
+// A histogram bin is clip(int((d - lo) * scale), 0, nbins - 1).
 // Lanes stride over sites; sums and argmaxes are warp shuffles. The RNG tile
 // of the reference (`tile` replicas per tile) is a logical parameter of the
 // draw keys, independent of the launch shape.
@@ -97,6 +127,14 @@ struct SweepArgs {
   uint32_t seed;
   float box[3];
   float params[6];       // K3: law parameters (slot 3 = cos theta, kind 4)
+  CellImage cell;        // K1 with TRI: the cell's h and h^-1
+  // STATS: jump statistics (see above)
+  const float* dist;     // [B, N, N] raw distances (K1 with nbins > 0)
+  int* hist;             // [R, nbins] in place
+  float* expo;           // [R, nbins] in place
+  int* jm;               // [N, N] the launch's jump matrix (adds), or null
+  int nbins;
+  float hist_lo, hist_hi, hist_scale;
 };
 
 // Blocks of `warps` warps per SM the launch bounds size registers for: 32
@@ -115,6 +153,7 @@ __host__ __device__ constexpr int sweep_min_blocks(int warps) {
 // per word) is odd.
 struct Lists {
   float* val;      // [N, ldv]
+  uint16_t* bin;   // [N, ldc] each entry's exposure bin (STATS), or null
   float* cval;     // [N, ldr]
   int* clen;       // [N]
   uint16_t* col;   // [N, ldc]
@@ -136,8 +175,21 @@ __host__ __device__ inline size_t list_bytes(int N, int cap, int ccap) {
   return (b + 15) & ~(size_t)15;
 }
 
-__device__ inline Lists lists_at(unsigned char* p, int N, int cap, int ccap) {
+// Bytes of the entries' exposure bins that STATS lists add after the
+// others (uint16 [N, ldc]; a 16-byte multiple).
+__host__ __device__ inline size_t bin_list_bytes(int N, int cap) {
+  return ((size_t)2 * N * 2 * odd_at_least((cap + 1) / 2) + 15) & ~(size_t)15;
+}
+
+__host__ __device__ inline size_t list_bytes(int N, int cap, int ccap,
+                                             bool stats) {
+  return list_bytes(N, cap, ccap) + (stats ? bin_list_bytes(N, cap) : 0);
+}
+
+__device__ inline Lists lists_at(unsigned char* p, int N, int cap, int ccap,
+                                 bool stats) {
   Lists L;
+  L.bin = stats ? (uint16_t*)(p + list_bytes(N, cap, ccap)) : nullptr;
   L.ldv = odd_at_least(cap);
   L.ldc = 2 * odd_at_least((cap + 1) / 2);
   L.ldr = 2 * odd_at_least((ccap + 1) / 2);
@@ -170,11 +222,13 @@ __host__ inline size_t sweep_fixed_bytes(int N, int warps, int extra) {
 
 // A sweep kernel's launch plan at N sites: the dynamic shared memory of a
 // block, as much as the blocks one SM holds for their registers and
-// threads leave each of them (at most the opt-in limit), and of that the
-// bytes left for the lists. Fails where not even the fixed part fits.
+// threads leave each of them (with `one_block`, all of an SM's: one block
+// per SM), at most the opt-in limit, and of that the bytes left for the
+// lists. Fails where not even the fixed part fits.
 __host__ inline cudaError_t sweep_plan(const void* kernel, int N, int warps,
                                        int extra, int device, size_t* smem,
-                                       size_t* list_budget) {
+                                       size_t* list_budget,
+                                       bool one_block = false) {
   if (N < 1 || N > 65535) return cudaErrorInvalidValue;
   int optin = 0, per_sm = 0, reserved = 0, blocks = 0;
   cudaError_t err = cudaDeviceGetAttribute(
@@ -195,6 +249,7 @@ __host__ inline cudaError_t sweep_plan(const void* kernel, int N, int warps,
                                                         warps * 32, fixed);
   if (err != cudaSuccess) return err;
   if (blocks < 1) return cudaErrorInvalidValue;
+  if (one_block) blocks = 1;
   size_t total = (size_t)per_sm / blocks - (size_t)reserved;
   if (total > (size_t)optin) total = (size_t)optin;
   *smem = total;
@@ -209,12 +264,32 @@ __device__ inline void raise_caps(int* caps, int k, int count) {
   if (count > 0) atomicMax(caps + k, count);
 }
 
+// The histogram bin of an in-range distance d.
+__device__ inline int hist_bin(const SweepArgs& a, float d) {
+  const int b = (int)((d - a.hist_lo) * a.hist_scale);
+  return b < 0 ? 0 : (b >= a.nbins ? a.nbins - 1 : b);
+}
+
+__device__ inline bool hist_in_range(const SweepArgs& a, float d) {
+  return d >= a.hist_lo && d < a.hist_hi;
+}
+
+// A list entry's exposure bin: the bin of its distance d where W > 0 and
+// lo <= d < hi, else NO_BIN (the host keeps nbins below it).
+constexpr uint16_t NO_BIN = 0xffff;
+
+__device__ inline uint16_t entry_bin(const SweepArgs& a, float w, float d) {
+  return w > 0.f && hist_in_range(a, d) ? (uint16_t)hist_bin(a, d) : NO_BIN;
+}
+
 // Appends this lane's value of column `j` to row i's list if it is nonzero
 // (NaN counts), keeping the warp's columns in order, and row i to column
 // j's list; `cnt` is the row's length so far (the same in every lane).
-// Returns 1 if w is not finite.
+// With STATS the entry's exposure bin `b` goes beside its value. Returns 1
+// if w is not finite.
+template <bool STATS>
 __device__ __forceinline__ int list_push(const Lists& L, int i, int j, float w,
-                                         int& cnt, int lane) {
+                                         uint16_t b, int& cnt, int lane) {
   const bool nz = w != 0.f;
   const unsigned m = __ballot_sync(FULL_MASK, nz);
   if (nz) {
@@ -222,6 +297,7 @@ __device__ __forceinline__ int list_push(const Lists& L, int i, int j, float w,
     const int q = atomicAdd(L.clen + j, 1);
     if (p >= L.cap || q >= L.ccap) __trap();  // caps were counted from W
     L.val[(size_t)i * L.ldv + p] = w;
+    if (STATS) L.bin[(size_t)i * L.ldc + p] = b;
     L.col[(size_t)i * L.ldc + p] = (uint16_t)j;
     L.crow[(size_t)j * L.ldr + q] = (uint16_t)i;
     L.cval[(size_t)j * L.ldr + q] = w;
@@ -230,24 +306,28 @@ __device__ __forceinline__ int list_push(const Lists& L, int i, int j, float w,
   return isfinite(w) ? 0 : 1;
 }
 
-// Writes row i's lists from `value(j)`, W[i][j] for the lane's column j < n:
-// eight columns per lane are evaluated (or loaded) before any is appended,
-// so their latencies overlap. Returns 1 if a value is not finite.
-template <class Value>
+// Writes row i's lists from `value(j)`, W[i][j] for the lane's column j < n
+// (with STATS also the entry's exposure bin `bin_of(j, w)`): eight columns
+// per lane are evaluated (or loaded) before any is appended, so their
+// latencies overlap. Returns 1 if a value is not finite.
+template <bool STATS, class Value, class Bin>
 __device__ __forceinline__ int push_row(const Lists& L, int i, int n, int lane,
-                                        const Value& value) {
+                                        const Value& value, const Bin& bin_of) {
   int cnt = 0, bad = 0;
   for (int base = 0; base < n; base += 8 * 32) {
     float w[8];
+    uint16_t b[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int j = base + 32 * k + lane;
       w[k] = j < n ? value(j) : 0.f;
+      b[k] = STATS && j < n ? bin_of(j, w[k]) : NO_BIN;
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       if (base + 32 * k < n)  // the same in every lane
-        bad |= list_push(L, i, base + 32 * k + lane, w[k], cnt, lane);
+        bad |= list_push<STATS>(L, i, base + 32 * k + lane, w[k], b[k], cnt,
+                                lane);
   }
   if (lane == 0) L.len[i] = (uint16_t)cnt;
   return bad;
@@ -286,8 +366,9 @@ __device__ inline float total_of(const float* row, int n, int lane) {
 // frames. `stage(a, f, L, cur, extra, warp, lane)` writes W[f]'s lists into
 // L (whose column lengths start at 0) after the frame's positions are in
 // `cur`, between two block barriers, and returns nonzero if it met a W
-// that is not finite.
-template <int WARPS, class Stage>
+// that is not finite. With STATS each warp's nbins counters, histogram and
+// exposure follow the stage scratch.
+template <int WARPS, bool STATS, bool TRI, class Stage>
 __device__ __forceinline__ void sweep_block(const SweepArgs& a,
                                             const Stage& stage) {
   extern __shared__ float sm[];
@@ -297,7 +378,12 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
   float* s = sm;                 // [N, 3] site-displacement prefix sum
   float* cur = s + 3 * n;        // [N, 3] positions of this frame
   float* extra = cur + 3 * n;    // stage scratch
-  unsigned char* warps_base = (unsigned char*)(extra + a.extra);
+  // STATS: this warp's per-frame counters, histogram and exposure [nbins]
+  int* wcnt = (int*)(extra + a.extra) + warp * 3 * a.nbins;
+  int* whist = wcnt + a.nbins;
+  float* wexpo = (float*)(whist + a.nbins);
+  unsigned char* warps_base =
+      (unsigned char*)(extra + a.extra + (STATS ? WARPS * 3 * a.nbins : 0));
   unsigned char* wb = warps_base + (size_t)warp * warp_smem_bytes(n);
   float* wocc = (float*)wb;                  // [N] this warp's occ
   float* wlab = wocc + n;                    // [N] labels
@@ -306,13 +392,13 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
   uint32_t* wmark = wvac + nw;               // rows to sum again
   uint16_t* wlist = (uint16_t*)(wmark + nw);  // [N] sites
   const int cap = a.caps[0], ccap = a.caps[1];
-  const size_t lb = list_bytes(n, cap, ccap);
+  const size_t lb = list_bytes(n, cap, ccap, STATS);
   unsigned char* lp = warps_base + (size_t)WARPS * warp_smem_bytes(n);
   if (lb > a.list_budget) {
     if (!a.lists_global || lb > a.slice) __trap();  // the host sized them
     lp = a.lists_global + (size_t)blockIdx.x * a.slice;
   }
-  const Lists L = lists_at(lp, n, cap, ccap);
+  const Lists L = lists_at(lp, n, cap, ccap, STATS);
 
   const int r = blockIdx.x * WARPS + warp;
   const bool active = r < a.R;
@@ -332,9 +418,15 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
     evc = a.evc[r];
     tile_id = (uint32_t)(r / a.tile + a.tile_offset);
     rin = (uint32_t)(r % a.tile);
+    if (STATS)
+      for (int b = lane; b < a.nbins; b += 32) {
+        whist[b] = a.hist[(size_t)r * a.nbins + b];
+        wexpo[b] = a.expo[(size_t)r * a.nbins + b];
+      }
   }
   const float dt = a.dt;
-  const CellImage cell = orthorhombic_image(a.box[0], a.box[1], a.box[2]);
+  const CellImage cell =
+      TRI ? a.cell : orthorhombic_image(a.box[0], a.box[1], a.box[2]);
   const unsigned below = (1u << lane) - 1u;
 
   for (int f = 0; f < a.B; ++f) {
@@ -457,17 +549,27 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
 
       const float label = wlab[src];
       const float t_event = frame_time + eph;
+      float jump[3] = {cur[dst * 3] - cur[src * 3],
+                       cur[dst * 3 + 1] - cur[src * 3 + 1],
+                       cur[dst * 3 + 2] - cur[src * 3 + 2]};
+      cell.apply(jump[0], jump[1], jump[2]);
       float add[3];
-      for (int dim = 0; dim < 3; ++dim) {
-        float jump = minimg(cur[dst * 3 + dim] - cur[src * 3 + dim], a.box[dim]);
-        add[dim] = (s[src * 3 + dim] - s[dst * 3 + dim]) + jump;
-      }
+      for (int dim = 0; dim < 3; ++dim)
+        add[dim] = (s[src * 3 + dim] - s[dst * 3 + dim]) + jump[dim];
       __syncwarp();  // all lanes have read occ / labels / rows / the list
       if (lane == 0) {
         wocc[src] = wocc[src] - 1.0f;
         wocc[dst] = wocc[dst] + 1.0f;
         wlab[src] = 0.f;
         wlab[dst] = label;
+        if (STATS && a.nbins > 0) {
+          float sq = jump[0] * jump[0];
+          sq = sq + jump[1] * jump[1];
+          sq = sq + jump[2] * jump[2];
+          const float d = sqrtf(sq);
+          if (hist_in_range(a, d)) whist[hist_bin(a, d)] += 1;
+        }
+        if (STATS && a.jm) atomicAdd(a.jm + (size_t)src * n + dst, 1);
       }
       for (int p = lane; p < a.P; p += 32) {
         size_t rp = (size_t)r * a.P + p;
@@ -527,6 +629,42 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
       total = total_of(wrow, n, lane);
     }
     if (!done) trn += 1;
+    if (STATS && a.nbins > 0) {
+      // the exposure under the post-event occupancy: the occupied rows in
+      // ascending order, lane l walking the l-th, (l+32)-th, ... list,
+      // loading four entries before it counts any
+      for (int b = lane; b < a.nbins; b += 32) wcnt[b] = 0;
+      int no = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int i = base + lane;
+        const bool o = i < n && wocc[i] != 0.f;
+        const unsigned m = __ballot_sync(FULL_MASK, o);
+        if (o) wlist[no + __popc(m & below)] = (uint16_t)i;
+        no += __popc(m);
+      }
+      __syncwarp();
+      for (int k = lane; k < no; k += 32) {
+        const int i = wlist[k];
+        const uint16_t* c = L.col + (size_t)i * L.ldc;
+        const uint16_t* bn = L.bin + (size_t)i * L.ldc;
+        const int len = L.len[i];
+        for (int m = 0; m < len; m += 4) {
+          uint16_t b[4];
+          bool vac[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            b[q] = m + q < len ? bn[m + q] : NO_BIN;
+            vac[q] = b[q] != NO_BIN && wocc[c[m + q]] == 0.f;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (vac[q]) atomicAdd(wcnt + b[q], 1);
+        }
+      }
+      __syncwarp();
+      for (int b = lane; b < a.nbins; b += 32) wexpo[b] = wexpo[b] + (float)wcnt[b];
+      __syncwarp();
+    }
     // frame end: the reference evaluates the rates of the final occupancy
     // again; `total` holds them (stale: the frame-start total)
     u = u - (a.stale ? total0 : total) * (dt - phase);
@@ -543,6 +681,11 @@ __device__ __forceinline__ void sweep_block(const SweepArgs& a,
       a.evc[r] = evc;
       a.trunc[r] = trn;
     }
+    if (STATS)
+      for (int b = lane; b < a.nbins; b += 32) {
+        a.hist[(size_t)r * a.nbins + b] = whist[b];
+        a.expo[(size_t)r * a.nbins + b] = wexpo[b];
+      }
   }
   if (blockIdx.x == 0) {
     for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) {

@@ -1,8 +1,10 @@
 // Kernel K3: the in-kernel-W KMC event loop (orthorhombic, law kinds 0-4).
 //
 // Replaces the TPU kernel cmdlmc_tpu/ops/kmc_sweep.py::_make_kernel
-// (pallas_call at ops/kmc_sweep.py:690), without its jump statistics and
-// jump matrix. One launch advances every replica through a whole block of
+// (pallas_call at ops/kmc_sweep.py:690), every branch of it: the jump
+// histogram with its exposure and the jump matrix are event_loop.cuh's
+// STATS option (the exposure bins each listed pair by the distance the
+// stage computes for its W: the bits of B2's dist_scr). One launch advances every replica through a whole block of
 // frames. Each frame, every thread block builds that frame's rate matrix
 // from the positions, as the TPU kernel builds it in VMEM
 // (ops/kmc_sweep.py:402-437):
@@ -57,7 +59,7 @@ __host__ inline int stage_floats(int N, int warps) {
 // sqrtf(acc) <= cutbuf exactly when acc <= acc_cut, the largest float with
 // that property (found on the host): pairs out of range skip the square
 // root and the law.
-template <int WARPS>
+template <int WARPS, bool STATS>
 struct BuildW {
   __device__ int operator()(const SweepArgs& a, int f, const Lists& L,
                             const float* cur, float* v1s, int warp,
@@ -117,7 +119,7 @@ struct BuildW {
       for (int k0 = 0; k0 < nc; k0 += 32) {
         const int k = k0 + lane;
         const int j = k < nc ? cand[k] : 0;
-        float w = 0.f;
+        float w = 0.f, dist = 0.f;
         if (k < nc) {
           const float dx = minimg(xi - cur[3 * j], lx);
           const float dy = minimg(yi - cur[3 * j + 1], ly);
@@ -125,7 +127,7 @@ struct BuildW {
           float acc = dx * dx + dy * dy;
           acc = acc + dz * dz;
           if (acc <= a.acc_cut) {
-            const float dist = sqrtf(acc);
+            dist = sqrtf(acc);
             bool in = true;
             if (kind == 4) {
               float dot = 0.f - v1s[4 * i] * dx;
@@ -136,7 +138,8 @@ struct BuildW {
             if (in) w = apply_law(kind, dist, a.params);
           }
         }
-        bad |= list_push(L, i, j, w, cnt, lane);
+        bad |= list_push<STATS>(L, i, j, w, STATS ? entry_bin(a, w, dist) : NO_BIN,
+                                cnt, lane);
       }
       if (lane == 0) L.len[i] = (uint16_t)cnt;
       __syncwarp();  // the list is read before the next row rewrites it
@@ -145,20 +148,36 @@ struct BuildW {
   }
 };
 
-template <int WARPS>
+template <int WARPS, bool STATS>
 __global__ void __launch_bounds__(WARPS * 32, sweep_min_blocks(WARPS))
     kmc_sweep_kernel(SweepArgs a) {
-  sweep_block<WARPS>(a, BuildW<WARPS>());
+  sweep_block<WARPS, STATS, false>(a, BuildW<WARPS, STATS>());
 }
 
+template <bool STATS>
 static const void* kernel_for(int warps) {
   switch (warps) {
-    case 2: return (const void*)kmc_sweep_kernel<2>;
-    case 4: return (const void*)kmc_sweep_kernel<4>;
-    case 8: return (const void*)kmc_sweep_kernel<8>;
-    case 16: return (const void*)kmc_sweep_kernel<16>;
+    case 2: return (const void*)kmc_sweep_kernel<2, STATS>;
+    case 4: return (const void*)kmc_sweep_kernel<4, STATS>;
+    case 8: return (const void*)kmc_sweep_kernel<8, STATS>;
+    case 16: return (const void*)kmc_sweep_kernel<16, STATS>;
     default: return nullptr;
   }
+}
+
+static const void* kernel_for(int warps, bool stats) {
+  return stats ? kernel_for<true>(warps) : kernel_for<false>(warps);
+}
+
+// Floats of a block's fixed scratch besides the prefix sum and the warps'
+// arrays: the stage's, then STATS's counters, histograms and exposures (3
+// nbins per warp). With statistics the plan gives a block all of an SM's
+// shared memory (one block per SM), where the lists and their distances
+// fit at bench.py's density (with two blocks per SM they went to global
+// memory): the in-kernel route launches fewer than 16 RNG tiles of at most
+// 128 replicas, 128 blocks of 16 warps at most, under the H100's 132 SMs.
+static int k3_extra(int N, int warps, bool stats, int nbins) {
+  return stage_floats(N, warps) + (stats ? warps * 3 * nbins : 0);
 }
 
 // The sites j != i within range of site i (sqrtf of the squared minimum
@@ -193,17 +212,19 @@ __global__ void range_caps_kernel(const float* __restrict__ pos, int B, int N,
 
 // K3's launch plan at N sites and `warps` warps per block (`sweep_plan`;
 // the stage scratch holds the angle gate's v1s [N, 4] and each warp's
-// candidate columns) and how many of its blocks one SM holds.
-extern "C" int cmdlmc_kmc_sweep_plan(int N, int warps, int device,
-                                     long long* smem, long long* list_budget,
+// candidate columns) and how many of its blocks one SM holds, for the
+// kernel with jump statistics (`stats`, `nbins` bins) or without.
+extern "C" int cmdlmc_kmc_sweep_plan(int N, int warps, int stats, int nbins,
+                                     int device, long long* smem,
+                                     long long* list_budget,
                                      int* blocks_per_sm) {
   CmdlmcDeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  const void* k = kernel_for(warps);
+  const void* k = kernel_for(warps, stats != 0);
   if (!k) return (int)cudaErrorInvalidValue;
   size_t bytes = 0, budget = 0;
-  cudaError_t err = sweep_plan(k, N, warps, stage_floats(N, warps), device,
-                               &bytes, &budget);
+  cudaError_t err = sweep_plan(k, N, warps, k3_extra(N, warps, stats, nbins),
+                               device, &bytes, &budget, stats != 0);
   if (err != cudaSuccess) return (int)err;
   *smem = (long long)bytes;
   *list_budget = (long long)budget;
@@ -233,20 +254,26 @@ extern "C" int cmdlmc_kmc_sweep_caps(const void* pos, int B, int N,
 
 // One K3 launch: `caps` as counted by cmdlmc_kmc_sweep_caps; `lists` null,
 // or `slice` bytes of global scratch per block for lists that do not fit in
-// shared memory.
+// shared memory; `params` the law's 6 parameters; with `stats` (the kernel
+// with jump statistics; else null and 0 after `params`) `hist` and
+// `expo` [R, nbins] updated in place where nbins > 0, `jm` an [N, N] int32
+// sum the fired jumps add to (or null), the histogram's range [lo, hi) and
+// its bins per unit `scale`.
 extern "C" int cmdlmc_kmc_sweep(
     const void* pos, const void* pgrp, const void* prev_in, const void* s_in,
     void* prev_out, void* s_out, void* occ, void* lab, void* sites,
     void* tlast, void* db, void* u, void* evc, void* trunc, int R, int N,
     int P, int B, int tile, int tile_offset, int frame0, int max_events,
     int kind, const void* caps, void* lists, long long slice, int warps,
-    float dt, uint32_t seed,
-    float cutbuf, float lx, float ly, float lz, float p0, float p1, float p2,
-    float p3, float p4, float p5, void* stream, int device) {
+    float dt, uint32_t seed, float cutbuf, float lx, float ly, float lz,
+    const float* params, void* hist, void* expo, void* jm, int stats,
+    int nbins, float lo, float hi, float scale, void* stream, int device) {
   CmdlmcDeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (kind < 0 || kind > 4 || (kind == 4 && pgrp == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (nbins < 0 || (nbins > 0 && (!stats || !hist || !expo)) || (jm && !stats))
     return (int)cudaErrorInvalidValue;
   SweepArgs a = {};
   a.pos = (const float*)pos;
@@ -283,18 +310,21 @@ extern "C" int cmdlmc_kmc_sweep(
   a.box[0] = lx;
   a.box[1] = ly;
   a.box[2] = lz;
-  a.params[0] = p0;
-  a.params[1] = p1;
-  a.params[2] = p2;
-  a.params[3] = p3;
-  a.params[4] = p4;
-  a.params[5] = p5;
+  for (int q = 0; q < 6; ++q) a.params[q] = params[q];
   a.acc_cut = sqrt_cut(cutbuf);
+  a.hist = (int*)hist;
+  a.expo = (float*)expo;
+  a.jm = (int*)jm;
+  a.nbins = stats ? nbins : 0;
+  a.hist_lo = lo;
+  a.hist_hi = hi;
+  a.hist_scale = scale;
 
-  const void* k = kernel_for(warps);
+  const void* k = kernel_for(warps, stats != 0);
   if (!k) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  err = sweep_plan(k, N, warps, a.extra, device, &smem, &a.list_budget);
+  err = sweep_plan(k, N, warps, k3_extra(N, warps, stats, nbins), device,
+                   &smem, &a.list_budget, stats != 0);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
   return (int)cudaLaunchKernel(k, dim3((R + warps - 1) / warps),

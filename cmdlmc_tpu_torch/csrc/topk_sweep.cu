@@ -1,8 +1,8 @@
 // Kernel K4: the KMC event loop over K-nearest neighbor tables.
 //
 // Replaces the TPU kernel cmdlmc_tpu/ops/topk_sweep.py::_make_kernel
-// (pallas_call at ops/topk_sweep.py:1538) in rows semantics, without its jump
-// statistics and jump matrix. One launch advances every replica through a
+// (pallas_call at ops/topk_sweep.py:1538) in rows semantics, every branch of
+// it (the jump statistics and the jump matrix below). One launch advances every replica through a
 // whole block of frames; one warp runs one replica, lanes stride over sites.
 // The candidate rate of slot k at site i is
 //   a_k[i] = omega_k[i] occ[i] (1 - occ[nbr_k[i]]),
@@ -98,6 +98,19 @@
 // cheap on the TPU's vector unit, L2 traffic here), and at supercell N one
 // read of each table line per block instead of one per warp for it.
 //
+// Jump statistics (the template option STATS; the default entry point
+// launches the kernel without it): after each fired event lane 0 adds one
+// to the replica's bin of the event's table distance topd[kbest][src] where
+// lo <= d < hi, and one to [src][dst] of the launch's int32 [N, N] jump
+// matrix (an atomicAdd); at each frame end, under the post-event state and
+// before the unused budget leaves u, the warp counts for each slot k in
+// order and each bin the occupied sites i whose candidate rate a_k[i] is
+// positive and whose topd[k][i] lies in the bin (in nbins integer counters
+// in shared memory) and adds each slot's counts to the replica's float
+// exposure, as B3 adds its per-slot sums (whole numbers, the same bits).
+// The replica's histogram and exposure stay in the warp's shared memory
+// across the launch (3 nbins words a warp with the counters).
+//
 // Numerics: build with --fmad=false and without fast math (kmc_common.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,6 +147,12 @@ struct TopkArgs {
   uint32_t seed;
   float params[6];
   CellImage cell;
+  // STATS
+  int* hist;    // [R, nbins] in place
+  float* expo;  // [R, nbins] in place
+  int* jm;      // [N, N] the launch's jump matrix (adds), or null
+  int nbins;
+  float hist_lo, hist_hi, hist_scale;
 };
 
 // Sites past which a block runs 32 warps instead of 8 (see the note above).
@@ -148,14 +167,16 @@ constexpr int MAX_STAGE_TILE = 0;
 constexpr int MAX_STAGE_TILE = 512;
 #endif
 
-// Dynamic shared memory of one block: in the shared layout s [N, 3] and the
-// warps' occupancy bits; the frame's tables [2 or 3, K, N] and in-neighbour
-// lists (N + 1 offsets, K N entries) where staged whole; the ring of two
-// tiles of `tile` sites of each table where the first evaluation is staged.
+// Dynamic shared memory of one block: with statistics each warp's counters,
+// histogram and exposure (`nbins` words each); in the shared layout s [N, 3] and the warps' occupancy bits;
+// the frame's tables [2 or 3, K, N] and in-neighbour lists (N + 1 offsets,
+// K N entries) where staged whole; the ring of two tiles of `tile` sites of
+// each table where the first evaluation is staged.
 __host__ inline size_t topk_smem_bytes(int N, int K, int blend, int warps,
-                                       int layout, int with_tables, int tile) {
+                                       int layout, int with_tables, int tile,
+                                       int nbins) {
   const size_t ntab = blend ? 3 : 2;
-  size_t words = 0;
+  size_t words = (size_t)warps * 3 * nbins;
   if (layout == 0) words += (size_t)3 * N + (size_t)warps * ((N + 31) / 32);
   if (with_tables) words += (ntab + 1) * K * N + N + 1;
   words += 2 * ntab * K * (size_t)tile;
@@ -171,8 +192,8 @@ struct TopkPlan {
   size_t smem, scratch;
 };
 
-static cudaError_t topk_plan(int R, int N, int K, int blend, int device,
-                             TopkPlan* plan) {
+static cudaError_t topk_plan(int R, int N, int K, int blend, int nbins,
+                             int device, TopkPlan* plan) {
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -180,16 +201,17 @@ static cudaError_t topk_plan(int R, int N, int K, int blend, int device,
   const size_t limit = (size_t)optin;
   const int w = N > LARGE_N ? 32 : 8;
   plan->warps = w;
-  plan->layout = topk_smem_bytes(N, K, blend, w, 0, 0, 0) <= limit ? 0 : 1;
+  plan->layout =
+      topk_smem_bytes(N, K, blend, w, 0, 0, 0, nbins) <= limit ? 0 : 1;
   plan->tables_in_smem =
-      plan->layout == 0 && topk_smem_bytes(N, K, blend, w, 0, 1, 0) <= limit;
+      plan->layout == 0 && topk_smem_bytes(N, K, blend, w, 0, 1, 0, nbins) <= limit;
   plan->stage_tile = 0;
   if (!plan->tables_in_smem)
     for (int t = MAX_STAGE_TILE; t >= 32 && !plan->stage_tile; t /= 2)
-      if (topk_smem_bytes(N, K, blend, w, plan->layout, 0, t) <= limit)
+      if (topk_smem_bytes(N, K, blend, w, plan->layout, 0, t, nbins) <= limit)
         plan->stage_tile = t;
   plan->smem = topk_smem_bytes(N, K, blend, w, plan->layout,
-                               plan->tables_in_smem, plan->stage_tile);
+                               plan->tables_in_smem, plan->stage_tile, nbins);
   const size_t blocks = (size_t)(R + w - 1) / w;
   plan->scratch = plan->layout == 0 ? 0
                                     : sizeof(float) * blocks * 3 * N +
@@ -374,9 +396,15 @@ __device__ inline void staged_sums(const TopkArgs& a, float* ring, size_t fo,
   if (active) reduce_slots<KMAX>(a.K, lane, part, npos, mine, cnt);
 }
 
+// The histogram bin of an in-range distance d.
+__device__ inline int topk_bin(const TopkArgs& a, float d) {
+  const int b = (int)((d - a.hist_lo) * a.hist_scale);
+  return b < 0 ? 0 : (b >= a.nbins ? a.nbins - 1 : b);
+}
+
 // Four 8-warp blocks per SM (64 registers a thread): the N=144 launches
 // (R=4096, 512 blocks) then run in one wave on the 132 SMs.
-template <int WARPS, int KMAX, int LAYOUT>
+template <int WARPS, int KMAX, int LAYOUT, bool STATS>
 __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
     topk_sweep_kernel(TopkArgs a) {
   extern __shared__ float sm[];
@@ -386,10 +414,14 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
   const bool active = r < a.R;
   const int words = (n + 31) / 32;
   const size_t kn = (size_t)K * n;
-  // shared memory in order: s [N, 3] (layout 0); the staged tables [K, N]
-  // resc, topi, (blend) topd and the lists (N + 1 offsets, K N entries);
-  // the ring; each warp's occupancy bits (layout 0)
-  float* next = sm;
+  // shared memory in order: (STATS) each warp's counters; s [N, 3] (layout
+  // 0); the staged tables [K, N] resc, topi, (blend) topd and the lists
+  // (N + 1 offsets, K N entries); the ring; each warp's occupancy bits
+  // (layout 0)
+  int* wcnt = (int*)sm + warp * 3 * a.nbins;
+  int* whist = wcnt + a.nbins;
+  float* wexpo = (float*)(whist + a.nbins);
+  float* next = sm + (STATS ? WARPS * 3 * a.nbins : 0);
   float* s = a.s_glob + (size_t)blockIdx.x * 3 * n;
   if (LAYOUT == 0) {
     s = next;
@@ -425,6 +457,11 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
     evc = a.evc[r];
     tile_id = (uint32_t)(r / a.tile + a.tile_offset);
     rin = (uint32_t)(r % a.tile);
+    if (STATS)
+      for (int b = lane; b < a.nbins; b += 32) {
+        whist[b] = a.hist[(size_t)r * a.nbins + b];
+        wexpo[b] = a.expo[(size_t)r * a.nbins + b];
+      }
   }
   __syncwarp();
   const float dt = a.dt;
@@ -452,6 +489,8 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
     const float* td = a.tables_in_smem ? td_s : a.topd + fo;
     const int* off = a.tables_in_smem ? off_s : in_off;
     const int* ent = a.tables_in_smem ? ent_s : in_ent;
+    // the table distances the statistics bin (staged only with the blend)
+    const float* tdist = a.tables_in_smem && a.blend ? td_s : a.topd + fo;
     const int frame_idx = a.frame0 + f;
     const float frame_time = (float)frame_idx * dt;
     // lane k < K carries slot k's rate sum and its count of positive
@@ -574,6 +613,11 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
         // the destination now holds a just-jumped proton; the source's entry
         // goes stale behind the occupancy
         tls_r[dst] = t_event;
+        if (STATS && a.nbins > 0) {
+          const float d = tdist[(size_t)kbest * n + src];
+          if (d >= a.hist_lo && d < a.hist_hi) whist[topk_bin(a, d)] += 1;
+        }
+        if (STATS && a.jm) atomicAdd(a.jm + (size_t)src * n + dst, 1);
       }
       for (int p = lane; p < a.P; p += 32) {
         const size_t rp = (size_t)r * a.P + p;
@@ -603,6 +647,25 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
       total = slot_total(mine, K);
     }
     if (!done) trn += 1;
+    if (STATS && a.nbins > 0) {
+      // the exposure under the post-event state, slot by slot
+      for (int k = 0; k < K; ++k) {
+        for (int b = lane; b < a.nbins; b += 32) wcnt[b] = 0;
+        __syncwarp();
+        for (int i = lane; i < n; i += 32) {
+          if (!occupied(bits, i)) continue;  // empty: a_k[i] = 0
+          const size_t o = (size_t)k * n + i;
+          const float d = tdist[o];
+          if (d >= a.hist_lo && d < a.hist_hi &&
+              cand_rate(a, rs, td, ti, bits, o,
+                        blend_ratio(a, tls_r, i, frame_time)) > 0.f)
+            atomicAdd(wcnt + topk_bin(a, d), 1);
+        }
+        __syncwarp();
+        for (int b = lane; b < a.nbins; b += 32) wexpo[b] = wexpo[b] + (float)wcnt[b];
+        __syncwarp();
+      }
+    }
     u = u - total * (dt - phase);  // the total after the frame's last event
   }
 
@@ -614,6 +677,11 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
       a.evc[r] = evc;
       a.trunc[r] = trn;
     }
+    if (STATS)
+      for (int b = lane; b < a.nbins; b += 32) {
+        a.hist[(size_t)r * a.nbins + b] = whist[b];
+        a.expo[(size_t)r * a.nbins + b] = wexpo[b];
+      }
   }
   if (blockIdx.x == 0) {
     const float* last = a.pos + (size_t)(a.B - 1) * 3 * n;
@@ -624,26 +692,42 @@ __global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 4 : 1)
   }
 }
 
-template <int WARPS, int KMAX, int LAYOUT>
+template <int WARPS, int KMAX, int LAYOUT, bool STATS>
 static cudaError_t launch(const TopkArgs& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      topk_sweep_kernel<WARPS, KMAX, LAYOUT>,
+      topk_sweep_kernel<WARPS, KMAX, LAYOUT, STATS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.R + WARPS - 1) / WARPS;
-  topk_sweep_kernel<WARPS, KMAX, LAYOUT><<<blocks, WARPS * 32, smem, stream>>>(a);
+  topk_sweep_kernel<WARPS, KMAX, LAYOUT, STATS>
+      <<<blocks, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The plan of a launch at (R, N, K, blend): warps per block, layout, tables
-// staged whole, tile of the staged first evaluation (0: none), dynamic
-// shared memory and global scratch in bytes (0 in the shared layout).
+template <bool STATS>
+static cudaError_t launch_plan(const TopkArgs& a, const TopkPlan& plan,
+                               cudaStream_t s) {
+  const bool k8 = a.K <= 8;
+  if (plan.layout == 1)
+    return k8 ? launch<32, 8, 1, STATS>(a, plan.smem, s)
+              : launch<32, 16, 1, STATS>(a, plan.smem, s);
+  if (plan.warps == 32)
+    return k8 ? launch<32, 8, 0, STATS>(a, plan.smem, s)
+              : launch<32, 16, 0, STATS>(a, plan.smem, s);
+  return k8 ? launch<8, 8, 0, STATS>(a, plan.smem, s)
+            : launch<8, 16, 0, STATS>(a, plan.smem, s);
+}
+
+// The plan of a launch at (R, N, K, blend) with `nbins` counters per warp
+// (0 without statistics): warps per block, layout, tables staged whole,
+// tile of the staged first evaluation (0: none), dynamic shared memory and
+// global scratch in bytes (0 in the shared layout).
 extern "C" int cmdlmc_topk_sweep_plan(int R, int N, int K, int blend,
-                                      int device, long long* out6) {
+                                      int nbins, int device, long long* out6) {
   CmdlmcDeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   TopkPlan plan;
-  cudaError_t err = topk_plan(R, N, K, blend, device, &plan);
+  cudaError_t err = topk_plan(R, N, K, blend, nbins, device, &plan);
   if (err != cudaSuccess) return (int)err;
   out6[0] = plan.warps;
   out6[1] = plan.layout;
@@ -654,6 +738,11 @@ extern "C" int cmdlmc_topk_sweep_plan(int R, int N, int K, int blend,
   return 0;
 }
 
+// One K4 launch; with `stats` the kernel with jump statistics (else the
+// arguments after geom18 are null and 0): `hist` and
+// `expo` [R, nbins] updated in place where nbins > 0, `jm` an [N, N] int32
+// sum the fired jumps add to (or null), the histogram's range [lo, hi) and
+// its bins per unit `scale`.
 extern "C" int cmdlmc_topk_sweep(
     const void* pos, const void* topd, const void* topi, const void* resc,
     const void* in_off, const void* in_ent, const void* prev_in,
@@ -662,14 +751,19 @@ extern "C" int cmdlmc_topk_sweep(
     void* trunc, void* scratch, long long scratch_bytes, int R, int N, int P,
     int B, int K, int tile, int tile_offset, int frame0, int max_events,
     int kind, int blend, int ortho, float dt, float relax, uint32_t seed,
-    const float* law6, const float* geom18, void* stream, int device) {
+    const float* law6, const float* geom18, void* hist, void* expo, void* jm,
+    int stats, int nbins, float lo, float hi, float scale, void* stream,
+    int device) {
   CmdlmcDeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   if (kind < 0 || kind > 3 || K < 1 || K > 16 || N < 2 || B < 1)
     return (int)cudaErrorInvalidValue;
+  if (nbins < 0 || (nbins > 0 && (!stats || !hist || !expo)) || (jm && !stats))
+    return (int)cudaErrorInvalidValue;
+  const int cnt = stats ? nbins : 0;
   TopkPlan plan;
-  err = topk_plan(R, N, K, blend, device, &plan);
+  err = topk_plan(R, N, K, blend, cnt, device, &plan);
   if (err != cudaSuccess) return (int)err;
   if ((long long)plan.scratch > scratch_bytes) return (int)cudaErrorInvalidValue;
   TopkArgs a = {};
@@ -717,12 +811,14 @@ extern "C" int cmdlmc_topk_sweep(
     a.cell.hinv[q] = geom18[9 + q];
   }
   a.cell.ortho = ortho;
+  a.hist = (int*)hist;
+  a.expo = (float*)expo;
+  a.jm = (int*)jm;
+  a.nbins = cnt;
+  a.hist_lo = lo;
+  a.hist_hi = hi;
+  a.hist_scale = scale;
 
   cudaStream_t s = (cudaStream_t)stream;
-  const bool k8 = K <= 8;
-  if (plan.layout == 1)
-    return (int)(k8 ? launch<32, 8, 1>(a, plan.smem, s) : launch<32, 16, 1>(a, plan.smem, s));
-  if (plan.warps == 32)
-    return (int)(k8 ? launch<32, 8, 0>(a, plan.smem, s) : launch<32, 16, 0>(a, plan.smem, s));
-  return (int)(k8 ? launch<8, 8, 0>(a, plan.smem, s) : launch<8, 16, 0>(a, plan.smem, s));
+  return (int)(stats ? launch_plan<true>(a, plan, s) : launch_plan<false>(a, plan, s));
 }

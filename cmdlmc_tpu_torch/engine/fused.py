@@ -1,8 +1,8 @@
 """Fused engine backend: EnsembleState <-> event-loop kernel adapters.
 
-Port of ``cmdlmc_tpu/engine/fused.py`` without jump statistics, the jump
-matrix (ROADMAP A11) and multi-GPU sharding (A18). Three kernels advance a
-whole block of frames per launch:
+Port of ``cmdlmc_tpu/engine/fused.py`` without multi-GPU sharding (ROADMAP
+A18). Three kernels advance a whole block of frames per launch, with the
+jump histograms and the jump matrix where the state carries them:
 
 * the dense models (``PairRates``, ``AnglePairRates``) on two routes that
   draw the same random numbers and, for the same W, land in the same state:
@@ -10,8 +10,9 @@ whole block of frames per launch:
   builds a frame's W from the positions, for few replica tiles; and
   streamed W (``ops/kmc_sweep_streamed.py``, kernel K1), where stage 1 builds
   the block's W [B, N, N] once (``dense_tables``, kernel K2 for the
-  distances) for any law and ``stale_rates``. :func:`inkernel_route` is the
-  rule between them; K3 evaluates the FermiAngle gate itself (law kind 4);
+  distances, or the triclinic torch distance) for any law, ``stale_rates``
+  and triclinic cells. :func:`inkernel_route` is the rule between them; K3
+  evaluates the FermiAngle gate itself (law kind 4);
 * the top-K models (``TopKPairRates``, ``HydroniumRates``) on
   ``ops/topk_sweep.py``: stage 1 builds the K-nearest tables (kernels K5 and
   K6 for an orthorhombic cell on the card), per frame or, with Verlet
@@ -42,8 +43,9 @@ logger = logging.getLogger(__name__)
 
 # The in-kernel route serves fewer replica tiles than this: the JAX
 # package's switch, so the port evaluates the FermiAngle gate where the
-# reference does at every tile count. On the H100 the two routes tie at 8
-# tiles and stage 1 + K1 is faster from 16 tiles on (PERF.md).
+# reference does at every tile count. On the H100 K3 is faster at 8 and 16
+# tiles and stage 1 + K1 from 32 tiles on, with jump statistics or without
+# (PERF.md).
 INKERNEL_MAX_TILES = 16
 # ... and at most this many sites. A frozen route boundary: it is where
 # K3's former dense W[N, N+1] stopped fitting in an H100 block's shared
@@ -56,22 +58,21 @@ INKERNEL_MAX_SITES = 224
 def fused_unsupported_reason(model, cell: Cell) -> str | None:
     """None if a port kernel can run this model and cell, else the reason,
     naming the ROADMAP item that will add it."""
+    # the round-based minimum image of the kernels (K1, K4) is exact only for
+    # vectors shorter than half the smallest cell height; candidate pair
+    # vectors reach cutoff + buffer
+    cutbuf = getattr(model, "cutbuf", 0.0)
+    if not cell.orthorhombic and cutbuf >= 0.5 * cell.min_height:
+        return (
+            f"triclinic cell too skewed for the kernels' round-based minimum "
+            f"image: cutoff+buffer ({cutbuf:.2f}) >= half the smallest "
+            f"perpendicular cell height ({0.5 * cell.min_height:.2f}); the "
+            "scan engine is not ported yet (ROADMAP A12)"
+        )
     if isinstance(model, TopKRates):
-        # the round-based minimum image of the top-K kernels is exact only
-        # for vectors shorter than half the smallest cell height; candidate
-        # pair vectors reach cutoff + buffer
-        if not cell.orthorhombic and model.cutbuf >= 0.5 * cell.min_height:
-            return (
-                f"triclinic cell too skewed for the top-K kernel's round-based "
-                f"minimum image: cutoff+buffer ({model.cutbuf:.2f}) >= half the "
-                f"smallest perpendicular cell height ({0.5 * cell.min_height:.2f}); "
-                "the scan engine is not ported yet (ROADMAP A12)"
-            )
         return ts.topk_unsupported_reason(model)
     if not isinstance(model, PairRates):
         return f"topology model {type(model).__name__} has no fused kernel"
-    if not cell.orthorhombic:
-        return "triclinic cells on the streamed kernel are not ported yet (ROADMAP A11)"
     if (isinstance(model.law, rate_laws.FermiAngle)
             and not isinstance(model, AnglePairRates)):
         return f"rate law {type(model.law).__name__} needs AngleTopology"
@@ -118,14 +119,15 @@ def pick_tile(n_replicas: int, target: int = 128, n_sites: int = 0) -> int:
     return t
 
 
-# Memory budget for the stage-1 W block [B, N, N] f32 materialized before the
-# kernel streams it; longer blocks split into frame sub-ranges, which is
-# bit-exact because draws are keyed by absolute frame and event ordinal.
+# Memory budget for the stage-1 W block [B, N, N] f32 (and, with jump
+# histograms, the distances beside it) materialized before the kernel
+# streams it; longer blocks split into frame sub-ranges, which is bit-exact
+# because draws are keyed by absolute frame and event ordinal.
 STREAMED_TABLE_BUDGET_BYTES = 2 << 30
 
 
-def _streamed_frame_chunk(n_frames: int, n_sites: int) -> int:
-    per_frame = n_sites * n_sites * 4
+def _streamed_frame_chunk(n_frames: int, n_sites: int, nbins: int = 0) -> int:
+    per_frame = n_sites * n_sites * 4 * (2 if nbins else 1)
     return max(1, min(n_frames, STREAMED_TABLE_BUDGET_BYTES // max(per_frame, 1)))
 
 
@@ -169,20 +171,32 @@ def run_block_fused(
     extras_positions: torch.Tensor | None = None,  # [B, M, 3] (AngleTopology)
     streamed: bool | None = None,  # None: the route rule decides
     nbr_reuse: bool | None = None,  # top-K only; None: the JAX auto rule
+    hist_range: tuple = (2.0, 3.0),
+    donate: bool = False,
 ):
     """Advance all replicas across the block. With ``return_truncation``
     also returns the per-replica count of frames whose event budget ran out.
     Top-K models reuse their neighbor lists (Verlet candidate reuse) with
     ``nbr_reuse`` True, or None where :func:`nbr_reuse_auto` turns it on;
-    the lists then carry over in ``ens.nbr_carry``."""
+    the lists then carry over in ``ens.nbr_carry``. Where the replicas
+    carry jump histograms (``jump_hist`` with bins, over ``hist_range``)
+    they advance too, and the block's jumps are added into replica 0 of a
+    tracked ``jump_matrix``. ``ens`` is left unchanged unless the caller
+    ``donate``s it: then the matrix is added into in place, which a loop
+    over blocks wants (a copy of the [R, N, N] matrix per launch would move
+    2.7 GB at R=16384, N=144), and ``ens`` must not be used again."""
     reason = fused_unsupported_reason(model, cell)
     if reason:
         raise NotImplementedError(reason)
+    if not donate and ens.replicas.jump_matrix.numel():
+        ens = dataclasses.replace(ens, replicas=dataclasses.replace(
+            ens.replicas, jump_matrix=ens.replicas.jump_matrix.clone()))
     if isinstance(model, TopKRates):
         return _run_block_topk(
             model, cell, ens, frames_positions, frame0, dt=dt,
             max_events=max_events, seed=seed, tile=tile, tile_offset=tile_offset,
-            return_truncation=return_truncation, nbr_reuse=nbr_reuse)
+            return_truncation=return_truncation, nbr_reuse=nbr_reuse,
+            hist_range=hist_range)
     angle = isinstance(model, AnglePairRates)
     if angle and extras_positions is None:
         raise ValueError("AngleTopology fused run needs extra-atom positions")
@@ -198,6 +212,7 @@ def run_block_fused(
         reason = inkernel_reason(model, cell, N, stale_rates)
         if reason:
             raise ValueError(reason)
+    stats = kss.stats_kwargs(rep, hist_range)
     if not streamed:
         kind = ks.law_kind(model.law)
         out = ks.kmc_sweep(
@@ -208,11 +223,11 @@ def run_block_fused(
             model.box, int(tile_offset),
             model.grouped_positions(extras) if kind == ks.KIND_FERMI_ANGLE else None,
             kind=kind, tile=tile, max_events=max_events, dt=float(dt),
-            seed=int(seed), cutbuf=model.cutbuf,
+            seed=int(seed), cutbuf=model.cutbuf, **stats,
         )
         return _finish(ens, rep, out, return_truncation)
     B = positions.shape[0]
-    chunk = _streamed_frame_chunk(B, N)
+    chunk = _streamed_frame_chunk(B, N, stats["nbins"])
     if chunk < B:
         trunc_total = None
         for s in range(0, B, chunk):
@@ -223,10 +238,15 @@ def run_block_fused(
                 tile_offset=tile_offset, return_truncation=True,
                 stale_rates=stale_rates,
                 extras_positions=extras[s:e] if angle else None, streamed=True,
+                hist_range=hist_range, donate=True,
             )
             trunc_total = trunc if trunc_total is None else trunc_total + trunc
         return (ens, trunc_total) if return_truncation else ens
-    w_block = kss.dense_tables(model, positions, extras)
+    if stats["nbins"]:
+        w_block, dist_block = kss.dense_tables(model, positions, extras,
+                                               nbins=stats["nbins"])
+    else:
+        w_block, dist_block = kss.dense_tables(model, positions, extras), None
     out = kss.kmc_sweep_streamed(
         w_block, positions, ens.prev_pos, ens.site_disp,
         rep.occ, rep.proton_of_site.to(torch.float32), rep.site_of_proton,
@@ -234,13 +254,15 @@ def run_block_fused(
         rep.clock.event_count, int(frame0), model.box, int(tile_offset),
         tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
         stale=stale_rates,
+        geometry=None if cell.orthorhombic else model.geometry,
+        dist_block=dist_block, **stats,
     )
     return _finish(ens, rep, out, return_truncation)
 
 
 def _run_block_topk(model, cell, ens, frames_positions, frame0, *, dt,
                     max_events, seed, tile, tile_offset, return_truncation,
-                    nbr_reuse):
+                    nbr_reuse, hist_range):
     """The top-K branch of :func:`run_block_fused`: stage 1 over the block,
     then K4, split into frame sub-ranges where the tables would pass the
     table budget (bit-exact: draws are keyed by absolute frame and event
@@ -269,17 +291,20 @@ def _run_block_topk(model, cell, ens, frames_positions, frame0, *, dt,
                 model, cell, ens, frames_positions[s:e], frame0 + s, dt=dt,
                 max_events=max_events, seed=seed, tile=tile,
                 tile_offset=tile_offset, return_truncation=True,
-                nbr_reuse=nbr_reuse)
+                nbr_reuse=nbr_reuse, hist_range=hist_range)
             trunc_total = trunc if trunc_total is None else trunc_total + trunc
         return (ens, trunc_total) if return_truncation else ens
     out = ts.run_block_topk(model, ens, frames_positions, frame0, dt=dt,
                             max_events=max_events, seed=seed, tile=tile,
-                            tile_offset=tile_offset, reuse=nbr_reuse)
+                            tile_offset=tile_offset, reuse=nbr_reuse,
+                            hist_range=hist_range)
     return _finish(ens, rep, out, return_truncation)
 
 
 def _finish(ens, rep, out, return_truncation):
-    """Repack a kernel output dict into an EnsembleState."""
+    """Repack a kernel output dict into an EnsembleState; the block's jump
+    matrix is added into replica 0's in place (the state is this run's own:
+    see ``donate`` in :func:`run_block_fused`)."""
     jumps_delta = out["ev_count"] - rep.clock.event_count
     clock = dataclasses.replace(
         rep.clock, u_remaining=out["u_rem"], event_count=out["ev_count"]
@@ -293,7 +318,11 @@ def _finish(ens, rep, out, return_truncation):
         disp_base=out["disp_base"],
         clock=clock,
         jumps=rep.jumps + jumps_delta,
+        jump_hist=out.get("jump_hist", rep.jump_hist),
+        opportunity_hist=out.get("exposure", rep.opportunity_hist),
     )
+    if "jump_matrix" in out:
+        rep.jump_matrix[0] += out["jump_matrix"]
     ens_out = dataclasses.replace(
         ens, replicas=replicas, site_disp=out["site_disp"],
         prev_pos=out["prev_pos"], nbr_carry=out.get("nbr_carry", ens.nbr_carry),

@@ -3,8 +3,9 @@
 Port of the state and observable parts of ``cmdlmc_tpu/engine/lattice.py``:
 ``ReplicaState``, ``EnsembleState``, ``init_replicas``,
 ``NeighborCarry``, ``proton_displacement``, ``observables_of``,
-``displacement_moment4``, ``per_proton_variance`` and ``_reset_states``. The per-frame scan engine
-waits for ROADMAP A12; jump histograms and the jump matrix for A11.
+``displacement_moment4``, ``per_proton_variance`` and ``_reset_states``, with
+the jump histograms and the jump matrix. The per-frame scan engine waits for
+ROADMAP A12.
 
 A replica is one KMC chain over the shared MD trajectory; all replicas of an
 ensemble advance together and share the site-displacement prefix sum.
@@ -33,6 +34,15 @@ class ReplicaState:
                                 displacement since reset is disp_base +
                                 site_disp[site]
     autocorr_ref   i32[R, P]    site of each proton at the last reset
+    jump_hist      i32[R, B]    distance-binned jump counts (jumpstat; B = 0
+                                turns the statistics off)
+    opportunity_hist f32[R, B]  distance-binned exposure of allowed
+                                transitions, in frames (jump probability =
+                                jump_hist / opportunity_hist)
+    jump_matrix    i32[R, n, n] per-pair jump counts, n = N when tracked, else
+                                0; the kernels add each block's count into
+                                replica 0, so the sum over replicas is the
+                                run's matrix (the JAX package's convention)
     """
 
     occ: torch.Tensor
@@ -43,6 +53,9 @@ class ReplicaState:
     jumps: torch.Tensor
     disp_base: torch.Tensor
     autocorr_ref: torch.Tensor
+    jump_hist: torch.Tensor
+    opportunity_hist: torch.Tensor
+    jump_matrix: torch.Tensor
 
     def to(self, device) -> "ReplicaState":
         return ReplicaState(**{
@@ -105,13 +118,19 @@ def init_replicas(
     n_protons: int,
     first_positions: torch.Tensor,
     device=None,
+    *,
+    hist_bins: int = 0,
+    track_jump_matrix: bool = False,
 ) -> EnsembleState:
     """Random occupancy: each replica places its protons on a uniformly
     random subset of sites, and draws its first exponential waiting time.
     The draws come from ``generator`` (a CPU generator, so a seed gives the
     same ensemble on every device); they match the JAX package's threefry
-    initialization in distribution only."""
+    initialization in distribution only. ``hist_bins > 0`` turns on the
+    distance-resolved jump statistics (jumpstat), ``track_jump_matrix`` the
+    N x N pair jump counter (1.36 GB at R=16384, N=144)."""
     R, N, P = n_replicas, n_sites, n_protons
+    jm = N if track_jump_matrix else 0
     keys = torch.rand((R, N), generator=generator)
     sites = torch.argsort(keys, dim=1)[:, :P].to(torch.int32)
     u0 = torch.empty(R).exponential_(generator=generator)
@@ -138,6 +157,10 @@ def init_replicas(
         jumps=torch.zeros(R, dtype=torch.int32, device=device),
         disp_base=torch.zeros((R, P, 3), dtype=torch.float32, device=device),
         autocorr_ref=sites.clone(),
+        jump_hist=torch.zeros((R, hist_bins), dtype=torch.int32, device=device),
+        opportunity_hist=torch.zeros((R, hist_bins), dtype=torch.float32,
+                                     device=device),
+        jump_matrix=torch.zeros((R, jm, jm), dtype=torch.int32, device=device),
     )
     return EnsembleState(
         replicas=replicas,

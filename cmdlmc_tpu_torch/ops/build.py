@@ -34,20 +34,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_PF = ctypes.POINTER(_F)
+# the jump statistics' arguments (hist, expo, jm, stats, nbins, lo, hi, scale)
+_STATS = [_P] * 3 + [_I, _I] + [_F] * 3
 _SIGNATURES = {
     "cmdlmc_pairwise": [_P, _I, _I, _F, _F, _F, _P, _P, _I],
     "cmdlmc_kmc_sweep_streamed": (
         [_P] * 14 + [_I] * 9 + [_P, _P, _LL]
-        + [_F, ctypes.c_uint32, _F, _F, _F, _P, _I]
+        + [_F, ctypes.c_uint32, _F, _F, _F, _P] + _STATS + [_I, _PF, _P, _I]
     ),
-    "cmdlmc_kmc_sweep_streamed_plan": [_I, _I] + [ctypes.POINTER(_LL)] * 2
+    "cmdlmc_kmc_sweep_streamed_plan": [_I] * 5 + [ctypes.POINTER(_LL)] * 2
     + [ctypes.POINTER(_I)],
     "cmdlmc_kmc_sweep_streamed_caps": [_P, _I, _I, _P, _P, _I],
     "cmdlmc_kmc_sweep": (
         [_P] * 14 + [_I] * 9 + [_P, _P, _LL, _I, _F, ctypes.c_uint32]
-        + [_F] * 10 + [_P, _I]
+        + [_F] * 4 + [_PF] + _STATS + [_P, _I]
     ),
-    "cmdlmc_kmc_sweep_plan": [_I] * 3 + [ctypes.POINTER(_LL)] * 2
+    "cmdlmc_kmc_sweep_plan": [_I] * 5 + [ctypes.POINTER(_LL)] * 2
     + [ctypes.POINTER(_I)],
     "cmdlmc_kmc_sweep_caps": [_P, _I, _I] + [_F] * 4 + [_P, _P, _I],
     "cmdlmc_rng_fill": [_P, _I, _I, _P, _P, _P, _I],
@@ -59,10 +62,10 @@ _SIGNATURES = {
     + [_P, _P, _P, _I],
     "cmdlmc_sparse_plan": [_P, _I, _I] + [ctypes.c_double] * 3 + [_I, _I, _F, _I, _I, _F]
     + [_P] * 7 + [_I],
-    "cmdlmc_topk_sweep_plan": [_I] * 5 + [ctypes.POINTER(_LL)],
+    "cmdlmc_topk_sweep_plan": [_I] * 6 + [ctypes.POINTER(_LL)],
     "cmdlmc_topk_sweep": (
         [_P] * 20 + [_LL] + [_I] * 12 + [_F, _F, ctypes.c_uint32]
-        + [ctypes.POINTER(_F)] * 2 + [_P, _I]
+        + [_PF] * 2 + _STATS + [_P, _I]
     ),
     "cmdlmc_water_sweep": (
         [_P] * 20 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
@@ -147,7 +150,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.cmdlmc_sweep_list_bytes.argtypes = [_I] * 3
+    lib.cmdlmc_sweep_list_bytes.argtypes = [_I] * 4
     lib.cmdlmc_sweep_list_bytes.restype = _LL
     lib.cmdlmc_error_string.argtypes = [ctypes.c_int]
     lib.cmdlmc_error_string.restype = ctypes.c_char_p

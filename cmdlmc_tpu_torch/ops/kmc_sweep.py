@@ -10,8 +10,10 @@ kernel ``csrc/kmc_sweep.cu`` for tensors on the card,
 :func:`kmc_sweep_reference` for tensors on the CPU. The lists are sized by
 the most sites in range of any site over the block, which a small kernel
 counts on the device before the sweep with K3's own range test
-(:func:`range_caps`), so the host does not wait for the device. Jump
-statistics and the jump matrix wait for ROADMAP A11.
+(:func:`range_caps`), so the host does not wait for the device. With
+``nbins`` the jump-distance histogram and its exposure advance too (the
+exposure reads the distance of each pair the kernel lists, which it keeps
+beside the pair's W), and with ``track_matrix`` the jump matrix.
 
 Draws are keyed as in K1 (``ops/rng.py``), so for the same W the two routes
 land in the same state. The W of kind 4 gates on a dot product against
@@ -163,7 +165,8 @@ def kmc_sweep_reference(
     positions, prev_pos, site_disp, occ, labels, sites, tlast, disp_base,
     u_rem, ev_count, law_params, frame0: int, box, tile_offset: int = 0,
     pgrp_positions=None, *, kind: int, tile: int, max_events: int, dt: float,
-    seed: int, cutbuf: float,
+    seed: int, cutbuf: float, jump_hist=None, exposure=None, nbins: int = 0,
+    hist_range=(2.0, 3.0), track_matrix: bool = False,
 ) -> dict:
     """Plain PyTorch version of K3: the frames' W as the kernel builds it,
     then K1's plain event loop on it (one frame and one event iteration at a
@@ -171,20 +174,25 @@ def kmc_sweep_reference(
     the races)."""
     w_block = inkernel_tables(positions, law_params, box, pgrp_positions,
                               kind=kind, cutbuf=cutbuf)
+    stats = dict(jump_hist=jump_hist, exposure=exposure, nbins=nbins,
+                 hist_range=hist_range, track_matrix=track_matrix)
+    if nbins:
+        stats["dist_block"] = _in_range(positions, box, cutbuf)[1]
     return kss.kmc_sweep_streamed_reference(
         w_block, positions, prev_pos, site_disp, occ, labels, sites, tlast,
         disp_base, u_rem, ev_count, frame0, box, tile_offset, tile=tile,
-        max_events=max_events, dt=dt, seed=seed,
+        max_events=max_events, dt=dt, seed=seed, **stats,
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(n_sites: int, warps: int, device_index: int) -> dict:
+def _plan(n_sites: int, warps: int, device_index: int, stats: bool = False,
+          nbins: int = 0) -> dict:
     smem, budget = ctypes.c_longlong(0), ctypes.c_longlong(0)
     per_sm = ctypes.c_int(0)
     code = build.library().cmdlmc_kmc_sweep_plan(
-        int(n_sites), int(warps), device_index, ctypes.byref(smem),
-        ctypes.byref(budget), ctypes.byref(per_sm))
+        int(n_sites), int(warps), int(stats), int(nbins), device_index,
+        ctypes.byref(smem), ctypes.byref(budget), ctypes.byref(per_sm))
     if code:
         raise ValueError(
             f"kmc_sweep: no launch at N={n_sites} with {warps} warps per "
@@ -195,15 +203,20 @@ def _plan(n_sites: int, warps: int, device_index: int) -> dict:
 
 
 def launch_plan(n_sites: int, caps, device: torch.device,
-                warps: int = WARPS_PER_BLOCK) -> dict:
-    """K3's launch plan at ``n_sites`` and ``warps`` warps per block: a
+                warps: int = WARPS_PER_BLOCK, nbins: int = 0,
+                track_matrix: bool = False) -> dict:
+    """K3's launch plan at ``n_sites`` and ``warps`` warps per block (for
+    the kernel with jump statistics where ``nbins`` or ``track_matrix``): a
     block's dynamic shared memory in bytes (as much as its occupancy leaves
     it) and of that the bytes left for lists, the blocks one SM holds, and
     whether lists of ``caps`` entries (:func:`range_caps`) live in shared
     memory (else in global scratch). Raises ValueError where no block
     fits."""
-    plan = dict(_plan(int(n_sites), int(warps), device.index or 0))
-    plan["lists_in_smem"] = kss.list_bytes(n_sites, *caps) <= plan["list_budget"]
+    stats = bool(nbins or track_matrix)
+    plan = dict(_plan(int(n_sites), int(warps), device.index or 0, stats,
+                      int(nbins)))
+    plan["lists_in_smem"] = (kss.list_bytes(n_sites, *caps, stats)
+                             <= plan["list_budget"])
     return plan
 
 
@@ -212,6 +225,8 @@ def kmc_sweep(
     u_rem, ev_count, law_params, frame0: int, box, tile_offset: int = 0,
     pgrp_positions=None, *, kind: int, tile: int, max_events: int, dt: float,
     seed: int, cutbuf: float, warps: int = WARPS_PER_BLOCK,
+    jump_hist=None, exposure=None, nbins: int = 0, hist_range=(2.0, 3.0),
+    track_matrix: bool = False,
 ) -> dict:
     """Advance every replica across a block of frames, W built in the kernel:
     K3 for CUDA tensors, the plain version for CPU tensors. ``positions``
@@ -221,7 +236,10 @@ def kmc_sweep(
     cutoff + buffer. Returns the updated state as a dict (occ, labels, sites,
     tlast, disp_base, u_rem, ev_count, site_disp, prev_pos, trunc), like the
     JAX function; the inputs are left unchanged. ``warps`` is the kernel's
-    replicas per thread block."""
+    replicas per thread block. The jump statistics (``jump_hist``,
+    ``exposure``, ``nbins``, ``hist_range``, ``track_matrix``) as in
+    :func:`kmc_sweep_streamed`, the exposure from the distances the kernel
+    computes."""
     B, N, _ = positions.shape
     R = occ.shape[0]
     P = sites.shape[1]
@@ -234,8 +252,13 @@ def kmc_sweep(
     angle = kind == KIND_FERMI_ANGLE
     if angle != (pgrp_positions is not None):
         raise ValueError("grouped P positions go with law kind 4, and only with it")
+    if nbins < 0:
+        raise ValueError("nbins must be >= 0")
+    if nbins and (jump_hist is None or exposure is None):
+        raise ValueError("nbins > 0 needs jump_hist and exposure")
     kw = dict(kind=kind, tile=tile, max_events=max_events, dt=dt, seed=seed,
-              cutbuf=cutbuf)
+              cutbuf=cutbuf, jump_hist=jump_hist, exposure=exposure,
+              nbins=nbins, hist_range=hist_range, track_matrix=track_matrix)
     dev = occ.device
     if dev.type == "cpu":
         return kmc_sweep_reference(
@@ -272,6 +295,9 @@ def kmc_sweep(
     # the kernel updates replica state in place: work on copies
     state = [t.contiguous().clone() for t in
              (occ, labels, sites, tlast, disp_base, u_rem, ev_count)]
+    hist, expo, jm, stat_args = kss.stats_args(
+        R, N, nbins, hist_range, track_matrix, jump_hist, exposure, dev)
+    stats = bool(nbins or track_matrix)
     pos = positions.contiguous()
     pgrp = pgrp_positions.contiguous() if angle else None
     prev_in = prev_pos.contiguous()
@@ -281,29 +307,30 @@ def kmc_sweep(
     trunc = torch.empty(R, dtype=i32, device=dev)
     if B == 0 or R == 0:
         trunc.zero_()
-        return kss._outputs(*state, s_in.clone(), prev_in.clone(), trunc)
+        return kss._with_stats(
+            kss._outputs(*state, s_in.clone(), prev_in.clone(), trunc), hist,
+            expo, jm)
     lx, ly, lz = (float(x) for x in box)
-    plan = _plan(N, int(warps), dev.index or 0)
+    plan = _plan(N, int(warps), dev.index or 0, stats, int(nbins))
     caps = range_caps(pos, box, cutbuf)
     lists, slice_ = kss.list_scratch(N, -(-R // int(warps)),
-                                     plan["list_budget"], caps)
-    lib = build.library()
-    kmc_sweep.launches += 1
-    build.check(
-        lib.cmdlmc_kmc_sweep(
-            pos.data_ptr(), pgrp.data_ptr() if angle else None,
-            prev_in.data_ptr(), s_in.data_ptr(), prev_out.data_ptr(),
-            s_out.data_ptr(), *(t.data_ptr() for t in state), trunc.data_ptr(),
-            R, N, P, B, int(tile), int(tile_offset), int(frame0),
-            int(max_events), int(kind), caps.data_ptr(),
-            None if lists is None else lists.data_ptr(), slice_, int(warps),
-            float(np.float32(dt)), int(seed) & 0xFFFFFFFF,
-            float(np.float32(cutbuf)), lx, ly, lz,
-            *params, build.stream_of(pos), dev.index or 0,
-        ),
-        "kmc_sweep kernel",
+                                     plan["list_budget"], caps, stats)
+    args = (
+        pos.data_ptr(), pgrp.data_ptr() if angle else None,
+        prev_in.data_ptr(), s_in.data_ptr(), prev_out.data_ptr(),
+        s_out.data_ptr(), *(t.data_ptr() for t in state), trunc.data_ptr(),
+        R, N, P, B, int(tile), int(tile_offset), int(frame0),
+        int(max_events), int(kind), caps.data_ptr(),
+        None if lists is None else lists.data_ptr(), slice_, int(warps),
+        float(np.float32(dt)), int(seed) & 0xFFFFFFFF,
+        float(np.float32(cutbuf)), lx, ly, lz,
     )
-    return kss._outputs(*state, s_out, prev_out, trunc)
+    kmc_sweep.launches += 1
+    build.check(build.library().cmdlmc_kmc_sweep(
+        *args, (ctypes.c_float * 6)(*params), *stat_args, build.stream_of(pos),
+        dev.index or 0), "kmc_sweep kernel")
+    return kss._with_stats(kss._outputs(*state, s_out, prev_out, trunc), hist,
+                           expo, jm)
 
 
 kmc_sweep.launches = 0

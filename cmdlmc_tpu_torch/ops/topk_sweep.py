@@ -3,7 +3,8 @@ plain version, the tile rule.
 
 Port of ``cmdlmc_tpu/ops/topk_sweep.py`` in rows semantics, for the top-K
 rate models (``TopKPairRates`` and ``HydroniumRates``, orthorhombic or
-triclinic cells) without jump statistics and the jump matrix (ROADMAP A11).
+triclinic cells), with the jump histogram over the event's table distance,
+its exposure over the K candidate slots, and the jump matrix.
 
 Stage 1 (:func:`topk_tables`) builds per frame the tables [B, K, N]:
 ``topd`` (neighbor distances, 1e6 where invalid), ``topi`` (neighbor
@@ -337,18 +338,11 @@ def pick_tile_topk(n_replicas: int, *, n_sites: int, n_protons: int,
 
 def _minimg3(d: torch.Tensor, geometry, orthorhombic: bool) -> torch.Tensor:
     """Round-based minimum image of [..., 3] vectors (the kernels' form)."""
-    h = [geometry[0:3], geometry[3:6], geometry[6:9]]
     if orthorhombic:
-        box = torch.tensor([h[0][0], h[1][1], h[2][2]], dtype=torch.float32,
-                           device=d.device)
+        box = torch.tensor([geometry[0], geometry[4], geometry[8]],
+                           dtype=torch.float32, device=d.device)
         return d - box * torch.round(d / box)
-    hinv = [geometry[9:12], geometry[12:15], geometry[15:18]]
-    f32 = np.float32
-    x, y, z = d[..., 0], d[..., 1], d[..., 2]
-    fr = [(f32(m[0]) * x + f32(m[1]) * y) + f32(m[2]) * z for m in hinv]
-    fr = [v - torch.round(v) for v in fr]
-    return torch.stack([(f32(m[0]) * fr[0] + f32(m[1]) * fr[1]) + f32(m[2]) * fr[2]
-                        for m in h], dim=-1)
+    return kss.minimg3(d, geometry)
 
 
 def candidate_rates(topd_f, topi_f, resc_f, occ, tls, frame_time, law_params,
@@ -384,10 +378,13 @@ def topk_sweep_reference(
     tlast, tlast_site, disp_base, u_rem, ev_count, law_params, frame0: int,
     geometry, tile_offset: int = 0, *, orthorhombic: bool, kind: int,
     tile: int, max_events: int, dt: float, seed: int, blend: bool,
+    jump_hist=None, exposure=None, nbins: int = 0, hist_range=(2.0, 3.0),
+    track_matrix: bool = False,
 ) -> dict:
     """Plain PyTorch version of K4: the reference's top-K event loop,
     vectorized over replicas, one frame and one event iteration at a time,
-    index gathers, and the zero-rate rule of the races."""
+    index gathers, and the zero-rate rule of the races (arguments as
+    :func:`topk_sweep`)."""
     B, N, _ = positions.shape
     K = topd.shape[1]
     R = occ.shape[0]
@@ -408,6 +405,11 @@ def topk_sweep_reference(
     u, evc, tls = u_rem, ev_count, tlast_site
     trunc = torch.zeros(R, dtype=torch.int32, device=dev)
     kw = dict(kind=kind, blend=blend)
+    hist = expo = jm = None
+    if nbins:
+        hist, expo = jump_hist.clone(), exposure.clone()
+    if track_matrix:
+        jm = torch.zeros((N, N), dtype=torch.int32, device=dev)
 
     for f in range(B):
         post = positions[f]
@@ -450,6 +452,16 @@ def topk_sweep_reference(
             tlast = torch.where(moving, t_event[:, None], tlast)
             add = (s[src] - s[dst]) + minimg3(post[dst] - post[src])  # [R, 3]
             disp_base = disp_base + moving.to(f32)[..., None] * add[:, None, :]
+            if nbins:  # the event's table distance
+                b, inr = kss.histogram_bins(td[kbest, src], nbins, hist_range)
+                hit = fire & inr
+                hist.index_put_((r_idx[hit], b[hit]),
+                                torch.ones_like(b[hit], dtype=hist.dtype),
+                                accumulate=True)
+            if track_matrix:
+                jm.index_put_((src[fire], dst[fire]),
+                              torch.ones_like(src[fire], dtype=jm.dtype),
+                              accumulate=True)
 
             key3 = rng.mix_key(seed, tid, frame_idx, ev, 3)
             fresh = -torch.log(rng.u01_counter(key3[:, None], rin[:, None]))[:, 0]
@@ -458,13 +470,19 @@ def topk_sweep_reference(
             phase = torch.where(fire, eph, phase)
             done = done | ~fire
         trunc = trunc + (~done).to(torch.int32)
-        total_end = slot_totals(candidate_rates(td, ti, rs, occ, tls, frame_time,
-                                                p, **kw))[1]
+        rates_end = candidate_rates(td, ti, rs, occ, tls, frame_time, p, **kw)
+        if nbins:
+            # the exposure slot by slot: positive rates at in-range distances
+            b, inr = kss.histogram_bins(td, nbins, hist_range)  # [K, N]
+            for k in range(K):
+                w = ((rates_end[:, k] > 0) & inr[k]).to(f32)  # [R, N]
+                expo = expo + w @ F.one_hot(b[k], nbins).to(f32)
+        total_end = slot_totals(rates_end)[1]
         u = u - total_end * (dt32 - phase)
 
     out = kss._outputs(occ, labels, sites, tlast, disp_base, u, evc, s, prev, trunc)
     out["tlast_site"] = tls
-    return out
+    return kss._with_stats(out, hist, expo, jm)
 
 
 def in_neighbour_lists(topi: torch.Tensor):
@@ -484,18 +502,18 @@ def in_neighbour_lists(topi: torch.Tensor):
     return torch.cumsum(off, dim=1, dtype=torch.int32), ent
 
 
-def sweep_plan(R: int, N: int, K: int, blend: bool, device: torch.device) -> dict:
+def sweep_plan(R: int, N: int, K: int, blend: bool, device: torch.device,
+               nbins: int = 0) -> dict:
     """K4's launch plan at (R, N, K, blend) on ``device``
-    (csrc/topk_sweep.cu): warps per block, layout (0 shared, 1 global),
-    whether the frame's tables are staged whole in shared memory, the tile
+    (csrc/topk_sweep.cu; with ``nbins`` counters per warp for the jump
+    histogram, the one part of the statistics the plan sizes): warps per
+    block, layout (0 shared, 1 global), whether the frame's tables are staged whole in shared memory, the tile
     of the staged first evaluation (0: none), the dynamic shared memory and
     the global scratch in bytes (0 in the shared layout)."""
     out = (ctypes.c_longlong * 6)()
-    build.check(
-        build.library().cmdlmc_topk_sweep_plan(
-            int(R), int(N), int(K), int(bool(blend)), device.index or 0, out),
-        "topk_sweep plan",
-    )
+    build.check(build.library().cmdlmc_topk_sweep_plan(
+        int(R), int(N), int(K), int(bool(blend)), int(nbins), device.index or 0,
+        out), "topk_sweep plan")
     keys = ("warps", "layout", "tables_in_smem", "stage_tile", "smem", "scratch")
     return dict(zip(keys, (int(v) for v in out)))
 
@@ -505,6 +523,8 @@ def topk_sweep(
     tlast, tlast_site, disp_base, u_rem, ev_count, law_params, frame0: int,
     geometry, tile_offset: int = 0, *, orthorhombic: bool, kind: int,
     tile: int, max_events: int, dt: float, seed: int, blend: bool,
+    jump_hist=None, exposure=None, nbins: int = 0, hist_range=(2.0, 3.0),
+    track_matrix: bool = False,
 ) -> dict:
     """Advance every replica across a block of frames over the top-K tables:
     K4 for CUDA tensors, the plain version for CPU tensors. ``positions``
@@ -513,7 +533,12 @@ def topk_sweep(
     (``law_params8``; a CPU tensor spares a device sync); ``geometry`` the 18
     host floats of h and h^-1 (``Cell.host_geometry``). Returns the updated
     state as a dict like the dense sweeps' plus ``tlast_site``;
-    the inputs are left unchanged."""
+    the inputs are left unchanged. With ``nbins > 0`` the jump histogram
+    ``jump_hist`` (int32 [R, nbins], binned by each event's table distance)
+    and its ``exposure`` (float32 [R, nbins], the slots of positive rate by
+    table distance at each frame end) over ``hist_range`` advance too and
+    the dict holds them; with ``track_matrix`` it holds the block's
+    ``jump_matrix``, int32 [N, N]."""
     B, N, _ = positions.shape
     K = topd.shape[1]
     R = occ.shape[0]
@@ -526,8 +551,14 @@ def topk_sweep(
         raise ValueError(f"the top-K kernel has no law kind {kind}")
     if not 1 <= K <= min(MAX_K, N - 1):
         raise ValueError(f"topk_sweep: K must be in [1, min({MAX_K}, N - 1)], got {K}")
+    if nbins < 0:
+        raise ValueError("nbins must be >= 0")
+    if nbins and (jump_hist is None or exposure is None):
+        raise ValueError("nbins > 0 needs jump_hist and exposure")
     kw = dict(orthorhombic=orthorhombic, kind=kind, tile=tile,
-              max_events=max_events, dt=dt, seed=seed, blend=blend)
+              max_events=max_events, dt=dt, seed=seed, blend=blend,
+              jump_hist=jump_hist, exposure=exposure, nbins=nbins,
+              hist_range=hist_range, track_matrix=track_matrix)
     dev = occ.device
     if dev.type == "cpu":
         return topk_sweep_reference(
@@ -575,34 +606,35 @@ def topk_sweep(
     prev_out = torch.empty_like(prev_in)
     trunc = torch.empty(R, dtype=i32, device=dev)
     occ2, lab2, sites2, tlast2, tls2, db2, u2, evc2 = state
+    hist, expo, jm, stat_args = kss.stats_args(
+        R, N, nbins, hist_range, track_matrix, jump_hist, exposure, dev)
     if B == 0 or R == 0:
         trunc.zero_()
         s_out.copy_(s_in)
         prev_out.copy_(prev_in)
     else:
-        scratch_bytes = sweep_plan(R, N, K, blend, dev)["scratch"]
+        scratch_bytes = sweep_plan(R, N, K, blend, dev, nbins)["scratch"]
         scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8, device=dev)
         lists = in_neighbour_lists(tables[2])
-        lib = build.library()
-        topk_sweep.launches += 1
-        build.check(
-            lib.cmdlmc_topk_sweep(
-                *(t.data_ptr() for t in (*tables, *lists)), prev_in.data_ptr(),
-                s_in.data_ptr(), prev_out.data_ptr(), s_out.data_ptr(),
-                *(t.data_ptr() for t in state[:6]), u2.data_ptr(),
-                evc2.data_ptr(), trunc.data_ptr(), scratch.data_ptr(),
-                scratch.numel(), R, N, P, B, K, int(tile), int(tile_offset),
-                int(frame0), int(max_events), int(kind), int(bool(blend)),
-                int(bool(orthorhombic)), float(np.float32(dt)),
-                params[6], int(seed) & 0xFFFFFFFF, (ctypes.c_float * 6)(*params[:6]),
-                (ctypes.c_float * 18)(*geom), build.stream_of(occ2), dev.index or 0,
-            ),
-            "topk_sweep kernel",
+        args = (
+            *(t.data_ptr() for t in (*tables, *lists)), prev_in.data_ptr(),
+            s_in.data_ptr(), prev_out.data_ptr(), s_out.data_ptr(),
+            *(t.data_ptr() for t in state[:6]), u2.data_ptr(),
+            evc2.data_ptr(), trunc.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), R, N, P, B, K, int(tile), int(tile_offset),
+            int(frame0), int(max_events), int(kind), int(bool(blend)),
+            int(bool(orthorhombic)), float(np.float32(dt)),
+            params[6], int(seed) & 0xFFFFFFFF, (ctypes.c_float * 6)(*params[:6]),
+            (ctypes.c_float * 18)(*geom),
         )
+        topk_sweep.launches += 1
+        build.check(build.library().cmdlmc_topk_sweep(
+            *args, *stat_args, build.stream_of(occ2), dev.index or 0),
+            "topk_sweep kernel")
     out = kss._outputs(occ2, lab2, sites2, tlast2, db2, u2, evc2, s_out,
                        prev_out, trunc)
     out["tlast_site"] = tls2
-    return out
+    return kss._with_stats(out, hist, expo, jm)
 
 
 topk_sweep.launches = 0
@@ -610,13 +642,16 @@ topk_sweep.launches = 0
 
 def run_block_topk(model, ens, frames_positions: torch.Tensor, frame0: int, *,
                    dt: float, max_events: int = 4, seed: int = 0, tile: int,
-                   tile_offset: int = 0, reuse: bool = False) -> dict:
+                   tile_offset: int = 0, reuse: bool = False,
+                   hist_range=(2.0, 3.0)) -> dict:
     """EnsembleState adapter: stage-1 tables for the block, then one sweep.
     Returns the sweep's output dict (``tlast_site`` is rebuilt from the
     state at every entry, so it is not carried). With ``reuse`` the tables
     come from :func:`topk_tables_verlet` on ``ens.nbr_carry``, and the dict
     also holds the new carry (``nbr_carry``); the rebuild frames add to
-    ``topk_tables_verlet.rebuild_frames``."""
+    ``topk_tables_verlet.rebuild_frames``. The jump statistics follow the
+    state's fields (``jump_hist``'s bins over ``hist_range``, the matrix
+    where ``jump_matrix`` is not empty)."""
     rep = ens.replicas
     positions = frames_positions.to(torch.float32)
     blend = has_blend(model)
@@ -635,7 +670,7 @@ def run_block_topk(model, ens, frames_positions: torch.Tensor, frame0: int, *,
         int(frame0), model.geometry, int(tile_offset),
         orthorhombic=model.cell.orthorhombic, kind=ks.law_kind(model.law),
         tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
-        blend=blend,
+        blend=blend, **kss.stats_kwargs(rep, hist_range),
     )
     if reuse:
         out["nbr_carry"] = carry

@@ -57,12 +57,14 @@ class PairRates(nn.Module):
         self.register_buffer(
             "buffer", torch.tensor(float(buffer), dtype=torch.float32, device=device)
         )
-        # host copies of the box and of cutoff + buffer (float32) for the
-        # kernels' launches, so no call waits on the device
+        # host copies of the box, of cutoff + buffer (float32) and of the
+        # cell geometry for the kernels' launches, so no call waits on the
+        # device
         self.box = (
             tuple(torch.diagonal(cell.h).tolist()) if cell.orthorhombic else None
         )
         self.cutbuf = float(np.float32(cutoff) + np.float32(buffer))
+        self.geometry = cell.host_geometry()
 
     def shared(self, frame: Frame) -> DenseShared:
         """W and distances for one frame ([N, 3] donors) or a block."""

@@ -389,7 +389,6 @@ def test_unsupported_features_raise(runs):
     for section, field, value in (
         ("engine", "checkpoint_path", "x.npz"),
         ("engine", "backend", "scan"),
-        ("output", "jumpstat_bins", 4),
         ("trajectory", "type_", "HDF5Trajectory"),
         ("topology", "type_", "KMCWater"),
     ):
