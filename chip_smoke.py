@@ -91,7 +91,23 @@ nonzero without the final ``ok`` line:
    equal those on the CPU; after them, past the 19,370 sites of the K7
    before its prefix table, the water tables and K7 against their plain
    versions at N=20000 and the CLI run there (R=256, 16 frames);
-12. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
+12. the host's side of ``mdmc``: the native xyz tokenizer must build and
+   load on the card's host, timed against the numpy path at 1024 x 144,
+   1024 x 216 and 64 x 4608 with the count of floats where they differ;
+   ``mdmc --legacy`` on a keyword config (R=256, K3) and ``mdmc --profile
+   DIR`` (its trace holds the card's kernels); trajconv and an HDF5 run
+   equal to the xyz run where h5py imports (else it says so);
+13. checkpoints: the ``bench.py`` deployment (R=16384, 1024 frames, a save
+   every 256-frame block; K2 + K1) and the box x4 supercell (512 frames,
+   reuse by the auto rule; K6, the Verlet epilogue and K4) each straight
+   through, then stopped halfway and resumed: rows and final states (the
+   neighbor carry included) equal bit for bit; each save's host and write
+   time and the device gap it leaves between the event loop's launches,
+   the load's time and the walls with and without saves;
+14. XYZOutput at R=1024 (K3): its final state equals the observables run's
+   bit for bit, its frames are well formed, and stopped and resumed it
+   prints the same frames;
+15. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
    rates), the two top-K supercell runs and the water N=216 run traced
    with torch.profiler (device busy and idle time, each kernel's share, the
    Verlet epilogue's, that of K4's in-neighbour lists and that of torch's
@@ -3387,6 +3403,363 @@ def phase_water(card: str):
     return paths
 
 
+# -- what mdmc reads and writes: host I/O, checkpoints, XYZOutput ------------
+
+# the native tokenizer against numpy at the parse shapes of the measured
+# paths: the dense deployment, water N=216 and the N=4608 supercell's block
+PARSE_SHAPES = ((1024, N_SITES, BOX), (1024, W_SITES, W_BOX), (64, SC_SITES, SC_BOX))
+
+
+def _best_s(fn, reps=3) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _cut_ini(cfg: Path, tag: str, engine=(), output=None, sweeps=None) -> Path:
+    """A copy of a write_inputs INI beside it: ``engine`` lines added to
+    [Engine], the output type replaced, the frame count (``sweeps``) set."""
+    text = cfg.read_text()
+    if sweeps is not None:
+        text = re.sub(r"(?m)^sweeps = .*\n", "", text)
+        engine = (*engine, f"sweeps = {sweeps}")
+    text = text.replace("[Engine]\n", "[Engine]\n" + "".join(f"{ln}\n" for ln in engine))
+    if output:
+        text = text.replace("type = ObservablesOutput", f"type = {output}")
+    out = cfg.with_name(f"{cfg.stem}_{tag}.ini")
+    out.write_text(text)
+    return out
+
+
+def _run_counted(cfg: Path):
+    """driver.run_from_config on the card with every launch count set to 0
+    just before and read just after: (text, simulation, launches, wall s)."""
+    import torch
+
+    from cmdlmc_tpu_torch import driver
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    sim = driver.run_from_config(cfg, out=buf, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return buf.getvalue(), sim, {n: fn.launches for n, fn in counters.items()}, wall
+
+
+def _state_diff(a, b, prefix="") -> list:
+    """Names of the fields where two states differ (tensors bit for bit,
+    the neighbor carry's floats exactly)."""
+    import dataclasses
+
+    import torch
+
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x) and dataclasses.is_dataclass(y):
+            diff += _state_diff(x, y, f"{prefix}{f.name}.")
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y)):
+                diff.append(prefix + f.name)
+        elif x != y:
+            diff.append(prefix + f.name)
+    return diff
+
+
+@contextlib.contextmanager
+def _save_probe(mod, attr):
+    """While open, each launch of ``mod.attr`` (an event-loop kernel's
+    wrapper) is bracketed by CUDA events and each checkpoint save is noted
+    with the launches before it, its host time and its write's time. Yields
+    (launches, saves); the wrapper's launch counter is carried over."""
+    import torch
+
+    from cmdlmc_tpu_torch.utils import checkpoint as ck
+
+    launches, saves = [], []
+    inner, save = getattr(mod, attr), ck.CheckpointWriter.save
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        launches.append((start, end))
+        return out
+
+    def noted(self, *args, **kwargs):
+        self.wait()
+        if saves and saves[-1]["writer"] is self:
+            saves[-1]["write_s"] = self.write_seconds
+        save(self, *args, **kwargs)
+        saves.append({"after": len(launches), "save_s": self.save_seconds,
+                      "writer": self, "write_s": None})
+
+    timed.__dict__.update(inner.__dict__)
+    setattr(mod, attr, timed)
+    ck.CheckpointWriter.save = noted
+    try:
+        yield launches, saves
+    finally:
+        inner.__dict__.update(timed.__dict__)
+        setattr(mod, attr, inner)
+        ck.CheckpointWriter.save = save
+        for s in saves:
+            if s["write_s"] is None:
+                s["write_s"] = s["writer"].write_seconds
+
+
+def _save_report(label, launches, saves, card) -> str:
+    """Each save's host time and write time, and the device gap between the
+    kernel launches around it beside the median of the other gaps."""
+    gaps = [launches[i][1].elapsed_time(launches[i + 1][0])
+            for i in range(len(launches) - 1)]
+    at = {s["after"] - 1 for s in saves}
+    others = sorted(g for i, g in enumerate(gaps) if i not in at)
+    median = others[len(others) // 2] if others else float("nan")
+    parts = []
+    for s in saves:
+        i = s["after"] - 1
+        gap = f"{gaps[i]:.3f} ms" if 0 <= i < len(gaps) else "after the last launch"
+        parts.append(f"after launch {s['after']}: save() {1e3 * s['save_s']:.3f} ms on the "
+                     f"host, write {1e3 * s['write_s']:.1f} ms on its thread, gap {gap}")
+    return (f"[resume] {label}: {len(saves)} saves; " + "; ".join(parts)
+            + f"; median gap without a save {median:.3f} ms over {len(others)} gaps ({card})")
+
+
+def phase_host_io(card: str):
+    """The host's side of mdmc on the card's machine: the native tokenizer
+    must build and load (the phase fails otherwise), timed against the
+    numpy path at PARSE_SHAPES with the count of floats where the two
+    differ; ``mdmc --legacy`` and ``mdmc --profile DIR`` on a small dense
+    run; and, where h5py imports, trajconv and an HDF5 run whose rows equal
+    the xyz run's (else it says that they were not run, and why)."""
+    import numpy as np
+
+    from cmdlmc_tpu_torch import native
+    from cmdlmc_tpu_torch.io import xyz
+
+    if native.get_lib() is None:
+        raise AssertionError("the native xyz tokenizer did not build or load on this host")
+    say(f"[host_io] native tokenizer loaded: {Path(native.so_path()).name}")
+    for frames, n, box in PARSE_SHAPES:
+        block = _jitter_block(n, frames, box)
+        lines = [f"O {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in block.reshape(-1, 3).tolist()]
+        _, fast = xyz._parse_batch(lines, n)
+        t_native = _best_s(lambda: xyz._parse_batch(lines, n))
+        parse = native.parse_atom_lines
+        native.parse_atom_lines = lambda *args: None
+        try:
+            _, slow = xyz._parse_batch(lines, n)
+            t_numpy = _best_s(lambda: xyz._parse_batch(lines, n))
+        finally:
+            native.parse_atom_lines = parse
+        if fast.shape != (frames, n, 3) or slow.shape != fast.shape:
+            raise AssertionError(f"parse of {frames} x {n}: shapes {fast.shape}, {slow.shape}")
+        ulps = np.abs(fast.view(np.int32).astype(np.int64) - slow.view(np.int32).astype(np.int64))
+        say(f"[host_io] parse of {frames} frames x {n} atoms: native {1e3 * t_native:.1f} ms, "
+            f"numpy {1e3 * t_numpy:.1f} ms (best of 3, one thread); {int((ulps > 0).sum())} of "
+            f"{ulps.size} floats differ (at most {int(ulps.max())} ulp) ({card})")
+        if ulps.max() > 1:
+            raise AssertionError("the native and numpy parses differ by more than an ulp")
+    _legacy_and_profile(card)
+    _hdf5_run(card)
+
+
+def _legacy_and_profile(card: str):
+    """``mdmc --legacy`` on a keyword config of the dense deployment at
+    R=256 (K3), and ``mdmc --profile DIR`` on its INI twin, whose trace must
+    hold the card's kernels."""
+    from cmdlmc_tpu_torch.cli import mdmc
+
+    ini = write_inputs(WORK, frames=64, replicas=256)
+    legacy = WORK / "legacy_64_256.cfg"
+    legacy.write_text(f"""filename {WORK / 'traj_64.xyz'}
+pbc {BOX} {BOX} {BOX}
+md_timestep_fs {DT}
+sweeps 64
+print_frequency 16
+reset_freq 0
+proton_number {N_PROTONS}
+lattice_size {N_SITES}
+donor_atoms O
+jumprate_type MD_rates
+jumprate_params_fs a={FERMI[0]} b={FERMI[1]} c={FERMI[2]}
+cutoff_radius {CUTOFF}
+neighbor_search_radius {CUTOFF + BUFFER}
+seed 1
+replicas 256
+""")
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mdmc.main([str(legacy), "--legacy"])
+    _, rows, _ = parse_rows(buf.getvalue())
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if [int(r[0]) for r in rows] != [0, 16, 32, 48] or launches["kmc_sweep"] <= 0:
+        raise AssertionError(f"mdmc --legacy: rows {rows}, launches {launches}")
+    say(f"[host_io] mdmc --legacy (R=256, 64 frames): {len(rows)} rows, K3 launches "
+        f"{launches['kmc_sweep']} ({card})")
+    trace_dir = WORK / "mdmc_profile"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mdmc.main([str(ini), "--profile", str(trace_dir)])
+    events = json.loads((trace_dir / "mdmc_trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels or not parse_rows(buf.getvalue())[1]:
+        raise AssertionError("mdmc --profile: no rows, or no kernel in the trace")
+    say(f"[host_io] mdmc --profile: {len(kernels)} kernel records in "
+        f"{trace_dir / 'mdmc_trace.json'}")
+
+
+def _hdf5_run(card: str):
+    """trajconv of the dense R=1024 trajectory and the HDF5 run of it,
+    whose rows must equal the xyz run's; where h5py does not import, says
+    so instead."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError as exc:
+        say(f"[host_io] HDF5 not run: h5py does not import on this host ({exc}); "
+            "trajconv and HDF5 trajectories need it")
+        return
+    from cmdlmc_tpu_torch.io.converters import save_xyz_to_hdf5
+
+    cfg = write_inputs(WORK, frames=1024, replicas=INKERNEL_REPLICAS, sweeps=512)
+    h5 = save_xyz_to_hdf5(str(WORK / "traj_1024.xyz"), str(WORK / "traj_1024.h5"))
+    h5cfg = cfg.with_name(f"{cfg.stem}_h5.ini")
+    h5cfg.write_text(cfg.read_text().replace(
+        f"filename = {WORK / 'traj_1024.xyz'}", f"type = HDF5Trajectory\nfilename = {h5}"))
+    text, _, _, _ = _run_counted(cfg)
+    h5text, _, launches, wall = _run_counted(h5cfg)
+    if parse_rows(h5text)[1] != parse_rows(text)[1] or launches["kmc_sweep"] <= 0:
+        raise AssertionError("the HDF5 run's rows differ from the xyz run's")
+    say(f"[host_io] HDF5 run (R=1024, 512 frames): rows equal the xyz run's; K3 "
+        f"launches {launches['kmc_sweep']}; wall {wall:.2f} s ({card})")
+
+
+def phase_resume(card: str):
+    """Checkpoints on the main path and on the box x4 supercell: each run
+    straight through with a save every block, then stopped halfway and
+    resumed; the rows and the final states must equal bit for bit. Prints
+    each save's time and the device gap it leaves between the event-loop
+    kernel's launches, the load's time, and each run's launch counts."""
+    from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+
+    dense = write_inputs(WORK, frames=1024, replicas=REPLICAS)
+    box4 = write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4")
+    paths = {}
+    for label, cfg, frames, mod, attr in (
+            ("dense R=16384", dense, 1024, kss, "kmc_sweep_streamed"),
+            (BOX4, box4, 512, ts, "topk_sweep")):
+        paths.update(_resume(label, cfg, frames, mod, attr, card))
+    return paths
+
+
+def _resume(label, cfg, frames, mod, attr, card):
+    from cmdlmc_tpu_torch import driver
+
+    tag = "".join(c if c.isalnum() else "_" for c in label)
+    ckpts = [WORK / f"ckpt_{tag}_{which}.npz" for which in ("straight", "split")]
+    for p in ckpts:
+        p.unlink(missing_ok=True)
+    every = ("checkpoint_interval = 1",)
+    straight = _cut_ini(cfg, "ckpt_straight", (f"checkpoint_path = {ckpts[0]}", *every))
+    split = [_cut_ini(cfg, f"ckpt_split{i}", (f"checkpoint_path = {ckpts[1]}", *every),
+                      sweeps=n) for i, n in ((1, frames // 2), (2, frames))]
+    _, _, _, plain_wall = _run_counted(cfg)
+    with _save_probe(mod, attr) as (launches, saves):
+        text, sim, counts, wall = _run_counted(straight)
+    say(_save_report(f"{label} straight, a save every block", launches, saves, card))
+    text1, _, counts1, wall1 = _run_counted(split[0])
+    load = driver.Simulation._load_checkpoint
+    loads = []
+
+    def timed_load(self, path):
+        t0 = time.perf_counter()
+        out = load(self, path)
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    driver.Simulation._load_checkpoint = timed_load
+    try:
+        text2, sim2, counts2, wall2 = _run_counted(split[1])
+    finally:
+        driver.Simulation._load_checkpoint = load
+    rows, rows1, rows2 = (parse_rows(t)[1] for t in (text, text1, text2))
+    diff = _state_diff(sim2.final_states, sim.final_states)
+    say(f"[resume] {label}: straight {len(rows)} rows, stopped at frame {frames // 2} "
+        f"with {len(rows1)} rows, resumed with {len(rows2)}; launches straight {counts}, "
+        f"first half {counts1}, resumed {counts2}")
+    say(f"[resume] {label}: wall without checkpoints {plain_wall:.3f} s, with a save "
+        f"every block {wall:.3f} s; first half {wall1:.3f} s, resumed half {wall2:.3f} s "
+        f"(its load {1e3 * loads[0]:.1f} ms) ({card})")
+    if rows1 + rows2 != rows or not rows2 or diff:
+        raise AssertionError(f"{label}: the resumed run differs from the straight run "
+                             f"(rows equal: {rows1 + rows2 == rows}; fields {diff})")
+    if min(counts1[attr], counts2[attr]) <= 0:
+        raise AssertionError(f"{label}: {attr} did not launch on both sides of the checkpoint")
+    carry = sim2.final_states.nbr_carry
+    say(f"[resume] {label}: rows and final state equal the straight run's bit for bit"
+        + (f", the neighbor carry included (last rebuild at frame {carry.last_rebuild:.0f})"
+           if carry is not None else ""))
+    return {f"{label} resumed": counts2}
+
+
+def phase_xyz(card: str):
+    """XYZOutput at R=1024 (K3): its final state equals the observables run
+    of the same config bit for bit, its frames are well formed (the donors
+    and a pseudo-atom on a donor site for each proton), and stopped at frame
+    256 and resumed it prints the straight run's frames."""
+    import numpy as np
+
+    cfg = write_inputs(WORK, frames=1024, replicas=INKERNEL_REPLICAS, sweeps=512)
+    xyz = _cut_ini(cfg, "xyz", output="XYZOutput")
+    _, obs, _, _ = _run_counted(cfg)
+    text, sim, launches, wall = _run_counted(xyz)
+    diff = _state_diff(sim.final_states, obs.final_states)
+    if diff or launches["kmc_sweep"] <= 0 or launches["kmc_sweep_streamed"]:
+        raise AssertionError(f"XYZOutput R=1024: fields {diff} differ from the observables "
+                             f"run's, launches {launches}")
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+    frames, i = [], 0
+    while i < len(lines):
+        n = int(lines[i])
+        frames.append(lines[i:i + 2 + n])
+        i += 2 + n
+    if [f[1] for f in frames] != [f"frame {k}" for k in range(0, 512, PRINT_FREQ)]:
+        raise AssertionError(f"XYZOutput R=1024: frames {[f[1] for f in frames]}")
+    for f in frames:
+        names = [ln.split()[0] for ln in f[2:]]
+        pos = np.array([ln.split()[1:] for ln in f[2:]], dtype=np.float64)
+        donors, protons = pos[:N_SITES], pos[N_SITES:]
+        on_site = (np.abs(protons[:, None] - donors[None]).max(axis=-1) == 0).any(axis=1)
+        if (names != ["O"] * N_SITES + ["H"] * N_PROTONS or not np.isfinite(pos).all()
+                or not on_site.all()):
+            raise AssertionError(f"XYZOutput R=1024: {f[1]} is malformed")
+    ckpt = WORK / "ckpt_xyz.npz"
+    ckpt.unlink(missing_ok=True)
+    parts = [_run_counted(_cut_ini(xyz, f"ckpt{n}", (f"checkpoint_path = {ckpt}",),
+                                   sweeps=n))[0] for n in (256, 512)]
+    resumed = [ln for t in parts for ln in t.splitlines() if ln and not ln.startswith("#")]
+    if resumed != lines:
+        raise AssertionError("XYZOutput R=1024: the resumed run's frames differ")
+    say(f"[xyz] XYZOutput R=1024 (512 frames): {len(frames)} frames well formed; final "
+        f"state equal to the observables run's bit for bit; stopped at 256 and resumed, "
+        f"the same frames; launches {launches}; wall {wall:.2f} s ({card})")
+    return {"xyz R=1024": launches}
+
+
 def _union_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -3416,6 +3789,7 @@ def _host_ranges():
     from cmdlmc_tpu_torch.ops import knn_sparse as kns
     from cmdlmc_tpu_torch.ops import knn_tables as knn
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
+    from cmdlmc_tpu_torch.utils import checkpoint as ck
 
     # the water CLI imports prefetch when it runs, so the patched one (the
     # driver bound its own at import and is not affected)
@@ -3430,7 +3804,9 @@ def _host_ranges():
             (knn, "cell_lists", CELLS_RANGE, "call"),
             (kns, "device_plan", "device_plan", "call"),
             (driver.Simulation, "_fused_post", "fused_post", "call"),
-            (driver.Simulation, "_emit_fused", "emit_rows", "gen")]
+            (driver.Simulation, "_emit_fused", "emit_rows", "gen"),
+            (ck.CheckpointWriter, "save", "ckpt_save", "call"),
+            (driver.Simulation, "_load_checkpoint", "ckpt_load", "call")]
 
 
 @contextlib.contextmanager
@@ -3558,7 +3934,9 @@ def phase_profile(card: str):
     torch.profiler after a warm run. The fresh run is traced four times, in
     turns with K1's lists sized on the host (LIST_SCRATCH_BUDGET = 0: the
     host waits for the counted lengths before each launch) and on the device
-    (the default: no wait), to show what the host's wait costs. Device busy time is the union of kernel
+    (the default: no wait), to show what the host's wait costs; the fresh
+    run with a checkpoint every block is traced too (its saves and the
+    load in ranges). Device busy time is the union of kernel
     and copy intervals in the trace; idle is the rest of the traced wall
     time; the box x4 run's Verlet epilogue is the device time launched from
     its stage 1 but for K5 and K6, and each top-K run's in-neighbour lists
@@ -3578,14 +3956,14 @@ def phase_profile(card: str):
     frames = sum(pos.shape[0] for _, pos, _ in XYZTrajectory(
         traj, time_step=DT, batch_frames=BLOCK).iter_batches())
     say(f"[profile] host xyz parse of {frames} frames x {N_SITES} atoms: "
-        f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
+        f"{time.perf_counter() - t0:.3f} s (the native tokenizer, one thread)")
     water_cfg = write_water_inputs(WORK, W_SITES, 1024, W_REPLICAS)
     t0 = time.perf_counter()
     frames = sum(pos.shape[0] for _, pos, _ in XYZTrajectory(
         WORK / f"water_{W_SITES}_1024.xyz", time_step=DT,
         batch_frames=W_BLOCK).iter_batches())
     say(f"[profile] host xyz parse of {frames} frames x {W_SITES} atoms: "
-        f"{time.perf_counter() - t0:.3f} s (numpy tokenizer, one thread)")
+        f"{time.perf_counter() - t0:.3f} s (the native tokenizer, one thread)")
     # each kernel's CUDA kernels by name: K5 is its full scan, its cell
     # route and that route's binning kernel; K7 its prefix pre-pass, its
     # packing of the tables and its loop
@@ -3595,11 +3973,14 @@ def phase_profile(card: str):
     knn = {"K5": k5, "K6": ("knn_sparse_kernel", *(f"sparse_{p}_kernel" for p in (
         "site", "scan", "bucket", "rank", "box", "list")))}
     fresh = write_inputs(WORK, frames=1024, replicas=REPLICAS)
+    ckpt = WORK / "ckpt_profile.npz"
     runs = [("fresh, host-sized lists", fresh, dense), ("fresh", fresh, dense),
             ("fresh again", fresh, dense),
             ("fresh, host-sized lists again", fresh, dense),
             ("stale", write_inputs(WORK, frames=1024, replicas=REPLICAS, stale=True),
              dense),
+            ("fresh, a save every block", _cut_ini(fresh, "ckpt_profile", (
+                f"checkpoint_path = {ckpt}", "checkpoint_interval = 1")), dense),
             ("supercell", write_inputs(WORK, frames=512, replicas=SC_REPLICAS,
                                        topk="supercell"),
              {"K4": ("topk_sweep_kernel",), **knn}),
@@ -3615,6 +3996,10 @@ def phase_profile(card: str):
         if name == "water":
             def run(out, cfg=cfg):
                 out.write(_run_water(cfg, "cuda")[0])
+        elif "save" in name:
+            def run(out, cfg=cfg):
+                ckpt.unlink(missing_ok=True)  # a run from frame 0 each time
+                driver.run_from_config(cfg, out=out, device="cuda")
         else:
             def run(out, cfg=cfg):
                 driver.run_from_config(cfg, out=out, device="cuda")
@@ -3711,6 +4096,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[build]   {line.strip()}")
 
+    from cmdlmc_tpu_torch import native
+
+    t0 = time.perf_counter()
+    built = not Path(native.so_path()).exists()
+    if native.get_lib() is None:
+        raise AssertionError("the native xyz tokenizer did not build or load on this host")
+    say(f"[build] native xyz tokenizer {'built with g++ and ' if built else ''}loaded "
+        f"({Path(native.so_path()).name}) in {time.perf_counter() - t0:.2f} s")
+
     libs = before() if before else None
     phase_rng(dev)
     k2 = phase_k2(dev, libs)
@@ -3722,6 +4116,9 @@ def main() -> int:
     k7 = phase_k7(dev, libs)
     paths = phase_end_to_end(card)
     paths.update(phase_water(card))
+    phase_host_io(card)
+    paths.update(phase_resume(card))
+    paths.update(phase_xyz(card))
     if opts.profile:
         phase_profile(card)
 

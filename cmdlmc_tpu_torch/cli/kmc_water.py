@@ -7,8 +7,8 @@ column output with Step/Time/position/neighbor/jumps/fps, or xyz output.
 card; ``--device cpu`` runs their plain PyTorch versions, whose states are
 those of the JAX package's fused path in interpret mode. Each print frame
 shows replica 0's site after that frame and the block-end jumps and
-correction, the JAX CLI's rule on its scan backend. HDF5 trajectories wait
-for ROADMAP A9.
+correction, the JAX CLI's rule on its scan backend. The trajectory is an
+xyz file or, by its ``.h5``/``.hdf5`` suffix, an HDF5 file (h5py needed).
 
     python -m cmdlmc_tpu_torch.cli.kmc_water load water.cfg [--device cpu]
 """
@@ -76,6 +76,7 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
     Returns the final WaterState."""
     from cmdlmc_tpu_torch.config.keyword import print_settings
     from cmdlmc_tpu_torch.driver import resolve_device
+    from cmdlmc_tpu_torch.io.hdf5 import HDF5Trajectory
     from cmdlmc_tpu_torch.io.stream import frame_blocks, prefetch
     from cmdlmc_tpu_torch.io.xyz import XYZTrajectory, write_xyz_frame
     from cmdlmc_tpu_torch.models import water as wm
@@ -100,8 +101,9 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
     if fname is None:
         raise ValueError("KMCWater config needs 'filename'")
     if fname.endswith((".h5", ".hdf5")):
-        raise NotImplementedError("HDF5 trajectories are not ported yet (ROADMAP A9)")
-    traj = XYZTrajectory(fname, time_step=dt, repeat=False)
+        traj = HDF5Trajectory(fname, time_step=dt, repeat=False)
+    else:
+        traj = XYZTrajectory(fname, time_step=dt, repeat=False)
 
     states = initial_states
     start_time = _time.time()

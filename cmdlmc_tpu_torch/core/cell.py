@@ -127,6 +127,18 @@ def minimum_image(cell: Cell, dvec: torch.Tensor) -> torch.Tensor:
     return torch.gather(candidates, -2, idx).squeeze(-2)
 
 
+def wrap_positions(cell: Cell, pos: torch.Tensor) -> torch.Tensor:
+    """Wrap absolute positions into the home cell [0, L) per axis (fractional
+    coordinates in [0, 1) for triclinic cells): the ``periodic_wrap`` output
+    option."""
+    if cell.orthorhombic:
+        lengths = torch.diagonal(cell.h)
+        return pos - lengths * torch.floor(pos / lengths)
+    frac = _rowvec_matmul_t(pos, cell.h_inv)
+    frac = frac - torch.floor(frac)
+    return _rowvec_matmul_t(frac, cell.h)
+
+
 def displacement(cell: Cell, r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """Minimum-image displacement r2 - r1."""
     return minimum_image(cell, r2 - r1)

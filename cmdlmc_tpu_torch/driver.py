@@ -20,7 +20,15 @@ supercell too): it
   4. prints the reference's '#'-commented column output, then with
      ``[Output] jumpstat_bins`` the jumpstat block (:func:`jumpstat_lines`)
      and with ``[Engine] jumpmatrix_filename`` saves the jump matrix summed
-     over the replicas with ``np.save``.
+     over the replicas with ``np.save``; or, with ``XYZOutput``, the donor
+     frames with replica 0's protons as pseudo-atoms (:meth:`xyz_rows`),
+  5. with ``[Engine] checkpoint_path`` resumes from the checkpoint there if
+     it exists (bit for bit: the kernels key their draws by seed, absolute
+     frame and event ordinal) and saves every ``checkpoint_interval`` blocks
+     and at the end (``utils/checkpoint.py``, the JAX package's layout).
+
+Trajectories are xyz files (the native tokenizer where it builds) or HDF5
+files (``io/hdf5.py``; h5py is imported only when one is read).
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP item.
@@ -29,7 +37,9 @@ ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import io
 import logging
+import os
 import sys
 import time
 from typing import Iterator
@@ -38,11 +48,12 @@ import numpy as np
 import torch
 
 from cmdlmc_tpu_torch.config.schema import SimulationConfig, load_config
-from cmdlmc_tpu_torch.core.cell import Cell, extended_positions
+from cmdlmc_tpu_torch.core.cell import Cell, extended_positions, wrap_positions
 from cmdlmc_tpu_torch.engine import fused as eng_fused
 from cmdlmc_tpu_torch.engine import lattice as eng
+from cmdlmc_tpu_torch.io.hdf5 import HDF5Trajectory
 from cmdlmc_tpu_torch.io.stream import frame_blocks, prefetch
-from cmdlmc_tpu_torch.io.xyz import XYZTrajectory
+from cmdlmc_tpu_torch.io.xyz import XYZTrajectory, write_xyz_frame
 from cmdlmc_tpu_torch.rates import laws as rate_laws
 from cmdlmc_tpu_torch.topo import models as topo_models
 from cmdlmc_tpu_torch.topo import transforms as topo_transforms
@@ -72,17 +83,11 @@ def resolve_device(device) -> torch.device:
 def unsupported_reason(cfg: SimulationConfig) -> str | None:
     """Configuration-level features the port does not run yet."""
     topo = cfg.topology
-    if cfg.trajectory.type_ == "HDF5Trajectory":
-        return "HDF5 trajectories are not ported yet (ROADMAP A9)"
     if topo.type_ not in ("NeighborTopology", "AngleTopology", "HydroniumTopology"):
         return (f"topology type {topo.type_!r} is not supported by mdmc; the water "
                 "family runs through cli/kmc_water.py (ROADMAP A16)")
-    if cfg.engine.checkpoint_path:
-        return "checkpoints are not ported yet (ROADMAP A9)"
     if cfg.engine.backend == "scan":
         return "the scan engine is not ported yet (ROADMAP A12)"
-    if cfg.output.type_ == "XYZOutput":
-        return "XYZOutput is not ported yet (ROADMAP A9)"
     if (topo.type_ == "AngleTopology"
             and tuple(int(m) for m in cfg.atombox.box_multiplier) != (1, 1, 1)):
         return ("AngleTopology with a box_multiplier is not ported yet: the JAX "
@@ -109,6 +114,17 @@ def build_trajectory(cfg: SimulationConfig):
             repeat=t.repeat,
             stride=t.stride,
             clip=t.clip,
+        )
+    if t.type_ == "HDF5Trajectory":
+        return HDF5Trajectory(
+            t.filename,
+            time_step=t.time_step,
+            selection=t.selection,
+            repeat=t.repeat,
+            chunk_size=t.chunk_size,
+            stride=t.stride,
+            clip=t.clip,
+            shuffle_seed=t.shuffle_seed,
         )
     raise ValueError(f"Unknown trajectory type {t.type_!r}")
 
@@ -342,11 +358,13 @@ class Simulation:
 
     # -- streaming --------------------------------------------------------------
 
-    def _blocks(self):
+    def _blocks(self, skip_until: int = 0):
         """Yield ``(block, donors, extras)`` with the parse and the
         host->device copy running on the prefetch thread (``extras`` is None
         without AngleTopology). With a ``box_multiplier`` the supercell's
-        positions are made on the device from the copied small cell."""
+        positions are made on the device from the copied small cell. Blocks
+        that end at or before ``skip_until`` (a resumed checkpoint's frame)
+        are parsed but not copied: their donors are None."""
         cfg = self.cfg
         topo = cfg.topology
         gen = frame_blocks(
@@ -367,56 +385,81 @@ class Simulation:
 
         def staged():
             for block in gen:
+                if block.start + block.n_frames <= skip_until:
+                    yield block, None, None
+                    continue
                 extras = device_array(block.extras) if self.angle else None
                 yield block, device_array(block.donors), extras
 
         return prefetch(staged())
 
     def observable_rows(self) -> Iterator[ObservableRecord]:
-        return self._stream()
+        return self._stream(xyz=False)
 
-    def _stream(self):
-        """Block-streaming engine behind :meth:`observable_rows`."""
+    def xyz_rows(self) -> Iterator[str]:
+        """XYZOutput mode: donor frames with replica 0's protons appended as
+        pseudo-atoms, at every print frame. The same engine as the
+        observables path (:meth:`_stream`): checkpoints, spans, resets and
+        truncation accounting are shared; replica 0's sites are fetched at
+        each print boundary."""
+        return self._stream(xyz=True)
+
+    def _load_checkpoint(self, path: str):
+        """(states, keys, next frame) of the checkpoint at ``path``, refused
+        when it was written under different physics."""
+        from cmdlmc_tpu_torch.utils.checkpoint import load_checkpoint
+
+        states, keys, resume_frame, meta = load_checkpoint(
+            path, device=self.device, k=getattr(self.model, "k", None))
+        logger.info("Resuming from %s at frame %d", path, resume_frame)
+        fp = meta.get("config_fingerprint")
+        if fp is not None and bytes(fp).decode() != config_fingerprint(self.cfg):
+            raise ValueError(
+                f"Checkpoint {path} was written by a run with different "
+                "physics settings (trajectory/cell/rates/topology/seed/"
+                "replicas); refusing to resume. Delete the checkpoint or "
+                "restore the original config.")
+        return states, keys, resume_frame
+
+    def _stream(self, xyz: bool):
+        """The block-streaming engine behind :meth:`observable_rows` (yields
+        :class:`ObservableRecord`) and :meth:`xyz_rows` (yields xyz frame
+        strings): checkpoint resume and save, spans and truncation
+        accounting are shared; only what a print boundary emits differs."""
+        from cmdlmc_tpu_torch.utils.checkpoint import CheckpointWriter
+
         cfg = self.cfg
-        states = None
-        for block, donors, extras in self._blocks():
+        states = keys = None
+        ckpt_path = cfg.engine.checkpoint_path
+        # saves ride under the next blocks' kernels (the writer snapshots
+        # the state on the device first: the loop updates it in place)
+        ckpt_writer = CheckpointWriter(ckpt_path) if ckpt_path else None
+        resume_frame = blocks_done = last_frame_done = 0
+        last_ckpt_frame = -1
+        if ckpt_path and os.path.exists(ckpt_path):
+            states, keys, resume_frame = self._load_checkpoint(ckpt_path)
+            # a re-run of a finished run simulates nothing again
+            last_frame_done = resume_frame
+        for block, donors, extras in self._blocks(skip_until=resume_frame):
             block_end = block.start + block.n_frames
+            if block_end <= resume_frame:
+                continue  # simulated before the checkpoint
+            if block.start < resume_frame:
+                raise ValueError(
+                    f"Checkpoint frame {resume_frame} falls inside the block "
+                    f"[{block.start}, {block_end}) — the checkpoint was "
+                    "written with a different [Engine] block_size. Resume "
+                    "with the original block_size (checkpoints record it in "
+                    "their meta) or delete the checkpoint.")
             if self.model is None:
                 self._set_model(build_model(cfg, self.cell, self.law,
                                             donors[0], extras[0]))
             if states is None:
-                n_sites = donors.shape[1]
-                if (cfg.kmc.lattice_size is not None
-                        and n_sites != cfg.kmc.lattice_size):
-                    logger.warning(
-                        "lattice_size=%d but trajectory provides %d donor "
-                        "sites; using %d",
-                        cfg.kmc.lattice_size, n_sites, n_sites,
-                    )
-                if self.initial_state is not None:
-                    # the run adds into its own copy of the jump matrix
-                    states = self.initial_state.to(self.device)
-                    states = dataclasses.replace(
-                        states, replicas=dataclasses.replace(
-                            states.replicas,
-                            jump_matrix=states.replicas.jump_matrix.clone()))
-                else:
-                    gen = torch.Generator().manual_seed(int(cfg.engine.seed))
-                    states = eng.init_replicas(
-                        gen, cfg.engine.replicas, n_sites,
-                        cfg.kmc.proton_number, donors[0], device=self.device,
-                        hist_bins=self.hist_bins,
-                        track_jump_matrix=self.track_jump_matrix,
-                    )
-                if cfg.output.print_frequency < 8:
-                    logger.warning(
-                        "print_frequency=%d cuts every kernel launch to %d "
-                        "frames with a host fetch each",
-                        cfg.output.print_frequency, cfg.output.print_frequency,
-                    )
+                states = self._initial_states(donors)
             # cut the block so every launch ends where a row is printed or the
             # observables reset (the reference's per-frame cadence)
             pending = []
+            donors_np = None
             for sub_start, sub_end in self._fused_spans(block.start, block_end):
                 lo, hi = sub_start - block.start, sub_end - block.start
                 states, trunc = eng_fused.run_block_fused(
@@ -439,22 +482,84 @@ class Simulation:
                     frac if self._fused_trunc is None
                     else torch.maximum(self._fused_trunc, frac)
                 )
-                states, pend = self._fused_post(states, sub_end)
+                states, pend = self._fused_post(states, sub_end, snapshot=not xyz)
                 pending.extend(pend)
+                f = sub_end - 1
+                if (xyz and f % cfg.output.print_frequency == 0
+                        and f >= cfg.engine.equilibration_sweeps):
+                    if donors_np is None:
+                        donors_np = donors.cpu().numpy()
+                    sites0 = states.replicas.site_of_proton[0].cpu().numpy()
+                    yield self._format_xyz(donors_np[f - block.start], sites0, f)
+            blocks_done += 1
+            will_ckpt = (ckpt_path and cfg.engine.checkpoint_interval > 0
+                         and blocks_done % cfg.engine.checkpoint_interval == 0)
             if self._steady_t0 is None:
                 self._steady_t0 = time.time()
                 self._steady_frames0 = block_end
-            prev_batch = self._fused_stats_pending
-            self._fused_stats_pending = (
-                ([f for f, _ in pending], torch.stack([s for _, s in pending]))
-                if pending else None
-            )
-            if prev_batch is not None:
-                yield from self._emit_fused(prev_batch)
+            if not xyz:
+                # this block's rows are fetched after the next block's
+                # launches, so the copy rides under its kernels
+                prev_batch = self._fused_stats_pending
+                self._fused_stats_pending = (
+                    ([f for f, _ in pending], torch.stack([s for _, s in pending]))
+                    if pending else None
+                )
+                if prev_batch is not None:
+                    yield from self._emit_fused(prev_batch)
+                if will_ckpt and self._fused_stats_pending is not None:
+                    # a checkpoint never covers frames whose rows were not
+                    # printed (a crash after the save would lose them)
+                    yield from self._emit_fused(self._fused_stats_pending)
+                    self._fused_stats_pending = None
+            if will_ckpt:
+                ckpt_writer.save(states, keys, block_end, meta=self._ckpt_meta())
+                last_ckpt_frame = block_end
+            last_frame_done = block_end
         if self._fused_stats_pending is not None:  # flush the deferred block
             yield from self._emit_fused(self._fused_stats_pending)
             self._fused_stats_pending = None
         self.final_states = states
+        if (ckpt_path and states is not None and blocks_done > 0
+                and last_frame_done != last_ckpt_frame):
+            # the last block's save already holds this frame
+            ckpt_writer.save(states, keys, last_frame_done, meta=self._ckpt_meta())
+        if ckpt_writer is not None:
+            ckpt_writer.close()  # the run is complete only once the file is
+
+    def _initial_states(self, donors):
+        """The run's first state: the given initial state (its jump matrix
+        copied, as the run adds into its own) or the seeded one."""
+        cfg = self.cfg
+        n_sites = donors.shape[1]
+        if cfg.kmc.lattice_size is not None and n_sites != cfg.kmc.lattice_size:
+            logger.warning(
+                "lattice_size=%d but trajectory provides %d donor sites; using %d",
+                cfg.kmc.lattice_size, n_sites, n_sites,
+            )
+        if cfg.output.print_frequency < 8:
+            logger.warning(
+                "print_frequency=%d cuts every kernel launch to %d frames with "
+                "a host fetch each",
+                cfg.output.print_frequency, cfg.output.print_frequency,
+            )
+        if self.initial_state is not None:
+            states = self.initial_state.to(self.device)
+            return dataclasses.replace(states, replicas=dataclasses.replace(
+                states.replicas, jump_matrix=states.replicas.jump_matrix.clone()))
+        gen = torch.Generator().manual_seed(int(cfg.engine.seed))
+        return eng.init_replicas(
+            gen, cfg.engine.replicas, n_sites, cfg.kmc.proton_number,
+            donors[0], device=self.device, hist_bins=self.hist_bins,
+            track_jump_matrix=self.track_jump_matrix,
+        )
+
+    def _ckpt_meta(self) -> dict:
+        return {
+            "seed": self.cfg.engine.seed,
+            "block_size": self.cfg.engine.block_size,
+            "config_fingerprint": np.bytes_(config_fingerprint(self.cfg).encode()),
+        }
 
     def _truncation_fraction(self) -> float:
         """Fold the on-device truncation accumulator into ``_max_truncation``."""
@@ -491,10 +596,12 @@ class Simulation:
             yield prev, b
             prev = b
 
-    def _fused_post(self, states, boundary: int):
+    def _fused_post(self, states, boundary: int, snapshot: bool = True):
         """Observable reset and snapshot at a sub-block boundary (the action
         frame is f = boundary - 1; reset before print, as in the reference).
-        Print-frame stats stay on the device as (frame, 10-vector) pairs."""
+        Print-frame stats stay on the device as (frame, 10-vector) pairs.
+        ``snapshot=False`` (xyz mode) applies the resets, so the state and a
+        checkpoint are those of the observables run, but skips the stats."""
         cfg = self.cfg
         f = boundary - 1
         rf = cfg.output.reset_frequency
@@ -505,7 +612,7 @@ class Simulation:
                 replicas=eng._reset_states(states.replicas, states.site_disp),
             )
         pending = []
-        if f % cfg.output.print_frequency == 0 and f >= eq:
+        if snapshot and f % cfg.output.print_frequency == 0 and f >= eq:
             pending.append((f, _fused_obs_stats(states, cfg.output.variance_mode)))
         return states, pending
 
@@ -524,6 +631,23 @@ class Simulation:
                 jumps=float(row[8]),
                 msd4=float(row[9]),
             )
+
+    def _format_xyz(self, pos: np.ndarray, proton_sites: np.ndarray,
+                    frame_no: int) -> str:
+        """One xyz frame: the donors (wrapped into the cell with
+        ``periodic_wrap``) and a pseudo-atom at each proton's site."""
+        cfg = self.cfg
+        if cfg.output.periodic_wrap:
+            host_cell = Cell(h=self.cell.h.cpu(), h_inv=self.cell.h_inv.cpu(),
+                             orthorhombic=self.cell.orthorhombic)
+            pos = wrap_positions(host_cell, torch.from_numpy(pos)).numpy()
+        proton_pos = pos[proton_sites]
+        names = ([cfg.topology.donor_atoms] * len(pos)
+                 + [cfg.output.particle_type] * len(proton_pos))
+        buf = io.StringIO()
+        write_xyz_frame(buf, names, np.vstack([pos, proton_pos]),
+                        comment=f"frame {frame_no}")
+        return buf.getvalue().rstrip("\n")
 
     def run(self, out=None):
         cfg = self.cfg
@@ -549,6 +673,17 @@ class Simulation:
             print(line, file=out)
         run_start = time.time()
         frames_done = 0
+        if cfg.output.type_ == "XYZOutput":
+            for row in self.xyz_rows():
+                print(row, file=out)
+            # the xyz stream must stay parseable: warn through the logger
+            if self._truncation_fraction() > 0:
+                logger.warning(
+                    "up to %.2f%% of replicas hit max_events_per_frame in "
+                    "some frame — raise [Engine] max_events_per_frame",
+                    100 * self._max_truncation,
+                )
+            return
         header = ["Sweeps", "Time", "MSD_x", "MSD_y", "MSD_z", "Autocorr", "Jumps"]
         if cfg.output.higher_msd:
             header += ["MSD4"]

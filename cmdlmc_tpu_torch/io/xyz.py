@@ -4,7 +4,8 @@
 Replaces the reference's line-filter + ``np.genfromtxt``-per-frame parser
 (IO/trajectory_parser.py:138-287) with a block-tokenizing reader: frames are
 gathered in batches, tokenized once with numpy string ops, and yielded as
-(names, float32 positions). This copy keeps only the numpy tokenizer path.
+(names, float32 positions). A native C++ tokenizer (cmdlmc_tpu_torch.native) is used
+when available; the numpy path is the always-available fallback.
 
 Selections follow the reference semantics: a string or tuple of strings selects
 atom types (indices resolved from the first frame,
@@ -58,9 +59,20 @@ def _parse_batch(body_lines: list[str], n_atoms: int):
     """Tokenize a batch of frame bodies (header lines already stripped).
 
     Returns (names [n_atoms] from the first frame, positions [F, n_atoms, 3]).
-    numpy string ops only; the native C++ tokenizer is not ported yet.
+    Uses the native C++ tokenizer when available; numpy string ops otherwise.
     """
-    tokens = np.array("".join(body_lines).split())
+    from cmdlmc_tpu_torch import native
+
+    total_atoms = len(body_lines)
+    text = "".join(body_lines).encode()
+    result = native.parse_atom_lines(text, total_atoms, n_atoms)
+    if result is not None:
+        names, pos = result
+        if pos.shape[0] == total_atoms:
+            return names, pos.reshape(-1, n_atoms, 3)
+        logger.warning("Native parser returned %d/%d atoms; falling back",
+                       pos.shape[0], total_atoms)
+    tokens = np.array(text.decode().split())
     tokens = tokens.reshape(-1, 4)
     names = tokens[:n_atoms, 0].astype("U4")
     positions = tokens[:, 1:].astype(np.float32).reshape(-1, n_atoms, 3)

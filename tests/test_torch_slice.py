@@ -387,9 +387,7 @@ def test_unsupported_features_raise(runs):
     jsim = runs[0]
     cfg = t_load_config(io.StringIO(INI.format(traj=jsim.cfg.trajectory.filename)))
     for section, field, value in (
-        ("engine", "checkpoint_path", "x.npz"),
         ("engine", "backend", "scan"),
-        ("trajectory", "type_", "HDF5Trajectory"),
         ("topology", "type_", "KMCWater"),
     ):
         bad = dataclasses.replace(

@@ -209,7 +209,6 @@ def test_cli_refusals(tmp_path, capsys):
                                   f"pbc {BOX} 0 0 1 {BOX} 0 0 0 {BOX}"),
         "n_atoms": base + "n_atoms 5\n",
         "interp": base + f"conversion_data {tmp_path / 'big.txt'}\n",
-        "hdf5": base.replace("water.xyz", "water.h5"),
     }
     x = np.linspace(1.0, 4.0, ws.MAX_INTERP_POINTS + 1)
     np.savetxt(tmp_path / "big.txt", np.stack([x, x], axis=1))
