@@ -107,7 +107,27 @@ nonzero without the final ``ok`` line:
 14. XYZOutput at R=1024 (K3): its final state equals the observables run's
    bit for bit, its frames are well formed, and stopped and resumed it
    prints the same frames;
-15. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
+15. kernel 2 (``csrc/threefry.cu``, JAX's threefry2x32 hash for the scan
+   engine, one launch per fold-in, split or draw) against its plain version
+   bit for bit up to 2^20 hashes, its key / fold_in / split / bits chain
+   against jax.random's values (THREEFRY_FIXED), timed after L2 flushes at
+   the four launches of the dense scan's event iteration (R = 16384), at a
+   fold-in of 2^22 keys and at 2^24 bits of one key;
+16. the scan engine end to end: small runs (R=256, 64 frames) held
+   against the CPU, dense through ``backend = scan``, top-K with
+   ``max_neighbors = 24`` through ``backend = auto`` with 20 jump bins and
+   the matrix, hydronium (its interpolator's blend) through ``backend =
+   scan``; bench.py's deployment at
+   R=16384 through ``backend = scan`` over 256 frames (K2 per frame and
+   kernel 2, no TF32), its events per replica-frame, MSD and
+   autocorrelation within 5 standard errors of the K1 route's over the
+   same frames; bench.py's sites with ``max_neighbors = 24`` at R=4096
+   through ``backend = auto`` over 128 frames (the top-K kernel refuses
+   k > 16; the driver's log names the refusal); the water N=216, R=8192
+   deployment with a 2001-point conversion table made from the 57-point
+   one (K7 takes at most 1024) through the ``kmc_water`` main over 128
+   frames, in distribution with K7 on the 57-point table;
+17. with ``--profile`` only: the R=16384 end-to-end run (fresh and stale
    rates), the two top-K supercell runs and the water N=216 run traced
    with torch.profiler (device busy and idle time, each kernel's share, the
    Verlet epilogue's, that of K4's in-neighbour lists and that of torch's
@@ -138,6 +158,7 @@ import ctypes
 import hashlib
 import io
 import json
+import logging
 import math
 import re
 import subprocess
@@ -2946,20 +2967,22 @@ def _counters():
     from cmdlmc_tpu_torch.ops.knn_sparse import device_plan, knn_sparse_tables
     from cmdlmc_tpu_torch.ops.knn_tables import knn_block_tables
     from cmdlmc_tpu_torch.ops.pairwise import pairwise_cubic
+    from cmdlmc_tpu_torch.ops.threefry import keyed_hash
 
     return {"kmc_sweep_streamed": kss.kmc_sweep_streamed,
             "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep,
             "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables,
             "knn_sparse": knn_sparse_tables, "device_plan": device_plan,
-            "water_sweep": ws.water_sweep}
+            "water_sweep": ws.water_sweep, "threefry": keyed_hash}
 
 
-def _small_cuda_vs_cpu(label, cfg):
+def _small_cuda_vs_cpu(label, cfg, scan=None):
     """The same config and initial state on the card and on the CPU (plain
     versions) must land in the same final state, but for near-ties; with
     jump statistics their histograms on the replicas that agree too, and,
     where every replica agrees, the saved jump matrices (each device's run
-    saves its own file)."""
+    saves its own file). With ``scan`` set, both runs must have taken the
+    scan engine (True) or not (False)."""
     import numpy as np
     import torch
 
@@ -2972,7 +2995,10 @@ def _small_cuda_vs_cpu(label, cfg):
         ini = Path(cfg).with_name(f"{Path(cfg).stem}_{d}.ini")
         ini.write_text(re.sub(r"(?m)^jumpmatrix_filename = .*$",
                               f"jumpmatrix_filename = {npy}", text))
-        finals[d] = driver.run_from_config(ini, out=io.StringIO(), device=d).final_states
+        sim = driver.run_from_config(ini, out=io.StringIO(), device=d)
+        if scan is not None and sim.use_scan != scan:
+            raise AssertionError(f"small {label} run on {d}: scan engine {sim.use_scan}")
+        finals[d] = sim.final_states
         if "jumpmatrix_filename" in text:
             matrices[d] = np.load(npy)
     a, b = finals["cuda"].replicas, finals["cpu"].replicas
@@ -3400,6 +3426,348 @@ def phase_water(card: str):
     paths[WHUGE] = _drive_water(
         WHUGE, write_water_inputs(WORK, W_HUGE_SITES, W_HUGE_FRAMES, W_HUGE_REPLICAS),
         card, W_HUGE_SITES, W_HUGE_FRAMES, W_HUGE_REPLICAS)
+    return paths
+
+
+# -- the scan engine: kernel 2 and the configurations the kernels refuse ------
+
+# jax.random's own values (JAX 0.9.0), pinned by tests/test_torch_threefry.py:
+# key(7); fold_in(key(7), 1); split(fold_in(key(7), 1), 3); the 32-bit bits
+# of fold_in(key(7), 1)
+THREEFRY_FIXED = {
+    "key7": [0, 7],
+    "fold_in1": [195045567, 4062205631],
+    "split3": [[1294055386, 3790878917], [1610437339, 2357010365],
+               [3281109246, 2806878594]],
+    "bits": 2899676959,
+}
+# H100 SXM integer rate outside the tensor cores: 64 INT32 lanes per SM
+# (Hopper white paper) x 132 SMs x 1.98 GHz boost
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+# one hash: 20 rounds of an add, a rotate and a xor, 5 injections of two
+# adds and a constant, the key schedule's xor (~80 integer operations)
+THREEFRY_OPS = 80.0
+# an L2 flush: a write of this many bytes (the H100's L2 holds 50 MB)
+FLUSH_BYTES = 256 * 2**20
+# the scan phases: bench.py's deployment through backend = scan; its sites
+# with max_neighbors = 24 (past the top-K kernel's 16) through backend =
+# auto; the water N=216 deployment with a 2001-point conversion table made
+# from the 57-point one (past K7's 1024)
+SCAN_FRAMES, SCAN_TOPK_K, SCAN_TOPK_FRAMES = 256, 24, 128
+SCAN_WATER_FRAMES, SCAN_TABLE_POINTS = 128, 2001
+DENSE_SCAN, TOPK_SCAN, WATER_SCAN = (
+    f"dense scan R={REPLICAS}", f"topk k={SCAN_TOPK_K} auto R={TOPK_REPLICAS}",
+    f"water scan N={W_SITES} R={W_REPLICAS} table {SCAN_TABLE_POINTS}")
+# agreement in distribution: the means of two independent ensembles within
+# this many standard errors
+SCAN_Z = 5.0
+
+
+def threefry_work(rows: int, num: int, key_rows: int, base_rows: int,
+                  xor: bool) -> tuple:
+    """(operations, bytes) of one kernel-2 launch: rows x num hashes; the
+    function's words are uint32: each distinct key row's two words read
+    once, a base word per row where the base is an array, two output words
+    a hash (one where they are xored)."""
+    hashes = rows * num
+    return hashes * THREEFRY_OPS, 4 * (2 * key_rows + base_rows + hashes * (1 if xor else 2))
+
+
+def threefry_bound(works) -> dict:
+    """The least time of a run of kernel-2 launches, from their
+    threefry_work (operations at the INT32 rate, bytes at HBM's)."""
+    t_ops = sum(w[0] for w in works) / PEAK_INT32_OPS
+    t_bytes = sum(w[1] for w in works) / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def cold_ms(calls, reps: int) -> float:
+    """Device time in ms of one round of `calls`, each call after a write
+    of FLUSH_BYTES that evicts the L2 (its inputs come from HBM): CUDA
+    events around each call, queued behind the flush so the host's launch
+    path is hidden; the mean over `reps` rounds."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        for fn in calls:
+            flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def phase_threefry(dev):
+    """Kernel 2 against its plain version bit for bit: the fold-ins, splits
+    and bits of the scan engine (key rows with a base array or one base,
+    counters derived in the kernel, words xored or not), a broadcast key,
+    up to 2^20 hashes; the key, fold_in, split and bits chain on the card
+    against JAX's values (THREEFRY_FIXED). Timed at the four launches of
+    one event iteration of the dense scan (R = 16384 lanes), each after an
+    L2 flush, against the bound of the function's uint32 words; also a
+    fold-in of 2^22 keys and 2^24 bits of one key."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.ops import threefry as tf
+
+    rng = np.random.RandomState(0)
+
+    def words(*shape):
+        return torch.from_numpy(rng.randint(0, 2**32, size=(*shape, 2), dtype=np.uint64)
+                                .astype(np.int64)).to(dev)
+
+    def bases(*shape):
+        return torch.from_numpy(rng.randint(0, 2**32, size=shape, dtype=np.uint64)
+                                .astype(np.int64)).to(dev)
+
+    for rows, num, with_base, xor in ((1, 1, False, False), (1000, 1, True, False),
+                                      (2**20, 1, True, False), (4096, 3, False, False),
+                                      (2**19, 2, False, True), (1, 1000, False, True)):
+        key = words(rows)
+        base = bases(rows) if with_base else int(rng.randint(0, 2**32, dtype=np.uint64))
+        if not torch.equal(tf.keyed_hash(key, base, num, xor),
+                           tf.keyed_hash_reference(key, base, num, xor)):
+            raise AssertionError(f"kernel 2 differs from its plain version at rows={rows}, "
+                                 f"num={num}, base array {with_base}, xor {xor}")
+    key, data = words(1), bases(4096)
+    if not torch.equal(tf.fold_in(key, data), tf.keyed_hash_reference(key, data)[..., 0, :]):
+        raise AssertionError("kernel 2 differs from its plain version with a broadcast key")
+    k = tf.key(7, dev)
+    f = tf.fold_in(k, 1)
+    chain = {"key7": k.tolist(), "fold_in1": f.tolist(),
+             "split3": tf.split(f, 3).tolist(), "bits": int(tf.random_bits(f))}
+    if chain != THREEFRY_FIXED:
+        raise AssertionError(f"kernel 2's key chain {chain} is not JAX's {THREEFRY_FIXED}")
+
+    # one event iteration of the dense scan (engine/clock.py::frame_step and
+    # lattice.py's apply): the selection and draw keys folded from the tag
+    # keys by the ordinals, the event key's split, the uniforms' bits of the
+    # split keys, the exponential's bits of the draw key
+    r = REPLICAS
+    tags, ordinals = words(2, r), bases(2, r).to(torch.int32)
+    event, drawk, halves = words(r), words(r), words(r, 2)
+    shapes = ((tags, ordinals, 1, False, threefry_work(2 * r, 1, 2 * r, 2 * r, False)),
+              (event, 0, 2, False, threefry_work(r, 2, r, 0, False)),
+              (halves, 0, 1, True, threefry_work(2 * r, 1, 2 * r, 0, True)),
+              (drawk, 0, 1, True, threefry_work(r, 1, r, 0, True)))
+    calls = [lambda a=a, b=b, n=n, x=x: tf.keyed_hash(a, b, n, x)
+             for a, b, n, x, _ in shapes]
+    plains = [lambda a=a, b=b, n=n, x=x: tf.keyed_hash_reference(a, b, n, x)
+              for a, b, n, x, _ in shapes]
+    n_calls = len(calls)
+    ms = cold_ms(calls, reps=50) / n_calls
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def flushed_round():
+        for fn in calls:
+            flush.zero_()
+            fn()
+
+    dev_ms = device_ms(flushed_round, names=("threefry",)) / n_calls
+    hot_ms, _ = cuda_ms(lambda: [fn() for fn in calls], reps=200)
+    plain_ms = cuda_ms(lambda: [fn() for fn in plains], reps=5)[0] / n_calls
+    b_ = threefry_bound([w for *_, w in shapes])
+    b_["bound_ms"] /= n_calls
+    big_key, big_base = words(2**22), bases(2**22)
+    ms_fold = cold_ms([lambda: tf.keyed_hash(big_key, big_base)], reps=20)
+    ms_bits = cold_ms([lambda: tf.keyed_hash(big_key[0], 0, 2**24, True)], reps=20)
+    b_fold = threefry_bound([threefry_work(2**22, 1, 2**22, 2**22, False)])
+    b_bits = threefry_bound([threefry_work(1, 2**24, 1, 0, True)])
+    del flush
+    say("[threefry] kernel 2 bit for bit against its plain version (base arrays and "
+        "scalars, iota counters, xored words, a broadcast key, up to 2^20 hashes); the "
+        "key/fold_in/split/bits chain equals JAX's values")
+    say(f"[threefry] one event iteration at R={r} (fold-in 2R, split R x 2, bits 2R, "
+        f"bits R), a launch each after an L2 flush: {ms:.5f} ms a launch (CUDA events), "
+        f"{dev_ms:.5f} ms on the device (profiler), bound {b_['bound_ms']:.6f} ms "
+        f"({b_['bound_by']}); back to back {hot_ms / n_calls:.5f} ms a launch (the host's "
+        f"path, warm L2); plain {plain_ms:.4f} ms a launch")
+    say(f"[threefry] fold-in of 2^22 keys: {ms_fold:.4f} ms, bound {b_fold['bound_ms']:.5f} "
+        f"ms ({b_fold['bound_by']}); 2^24 bits of one key: {ms_bits:.4f} ms, bound "
+        f"{b_bits['bound_ms']:.5f} ms ({b_bits['bound_by']}); each after an L2 flush")
+    # no PyTorch call computes threefry2x32
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+
+
+def _replica_stats(states, frames: int):
+    """Per replica (float64): events per frame, the MSD (x + y + z) and the
+    autocorrelation count."""
+    from cmdlmc_tpu_torch.engine import lattice as eng
+
+    msd, autocorr = eng.observables_of(states.replicas, states.site_disp)
+    return {"events per frame": states.replicas.clock.event_count.double() / frames,
+            "msd": msd.double().sum(dim=-1), "autocorr": autocorr.double()}
+
+
+def _in_distribution(label, got: dict, want: dict, what: str):
+    """Each statistic's mean over the replicas of `got` within SCAN_Z
+    standard errors of `want`'s (two independent ensembles)."""
+    parts = []
+    for name, x in got.items():
+        y = want[name]
+        se = math.sqrt(float(x.var()) / x.numel() + float(y.var()) / y.numel())
+        z = abs(float(x.mean()) - float(y.mean())) / max(se, 1e-300)
+        parts.append(f"{name} {float(x.mean()):.5f} vs {float(y.mean()):.5f} "
+                     f"({z:.2f} standard errors)")
+        if z > SCAN_Z:
+            raise AssertionError(f"{label}: {name} {float(x.mean())} differs from the "
+                                 f"{what}'s {float(y.mean())} by {z:.2f} standard errors")
+    say(f"[scan] {label} against the {what}, in distribution (bound {SCAN_Z} standard "
+        "errors): " + "; ".join(parts))
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _scan_dense(card: str):
+    """bench.py's deployment at R=16384 through backend = scan, held in
+    distribution against the K1 route of the same deployment and frames."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the scan engine's products must stay float32")
+    base = write_inputs(WORK, frames=1024, replicas=REPLICAS)
+    text, sim, launches, wall = _run_counted(
+        _cut_ini(base, "scan", engine=("backend = scan",), sweeps=SCAN_FRAMES))
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 was left on after the scan run")
+    header, rows, perf = parse_rows(text)
+    if (not sim.use_scan or len(rows) != len(range(0, SCAN_FRAMES, PRINT_FREQ))
+            or launches["pairwise_cubic"] != SCAN_FRAMES or launches["threefry"] <= 0
+            or any(launches[k] for k in ("kmc_sweep_streamed", "kmc_sweep"))):
+        raise AssertionError(f"{DENSE_SCAN}: route {sim.use_scan}, {len(rows)} rows, "
+                             f"launches {launches}")
+    k1_text, k1_sim, k1_launches, k1_wall = _run_counted(
+        _cut_ini(base, "k1_256", sweeps=SCAN_FRAMES))
+    if k1_sim.use_scan or k1_launches["kmc_sweep_streamed"] <= 0:
+        raise AssertionError(f"the K1 route did not run: {k1_launches}")
+    say(f"[scan] {DENSE_SCAN}: launches {launches}; {SCAN_FRAMES} frames in "
+        f"{wall:.2f} s, {1e3 * wall / SCAN_FRAMES:.3f} ms per frame, "
+        f"{launches['threefry'] / SCAN_FRAMES:.1f} kernel 2 launches per frame; the K1 "
+        f"route {k1_wall:.2f} s ({1e3 * k1_wall / SCAN_FRAMES:.3f} ms per frame); TF32 "
+        f"off ({card})")
+    say(f"[scan] {DENSE_SCAN}: {perf[0] if perf else 'no perf line'}")
+    _in_distribution(DENSE_SCAN, _replica_stats(sim.final_states, SCAN_FRAMES),
+                     _replica_stats(k1_sim.final_states, SCAN_FRAMES), "K1 route")
+    return launches
+
+
+def _scan_topk(card: str):
+    """bench.py's sites with max_neighbors = 24 at R=4096 through backend =
+    auto: the top-K kernel refuses k > 16, the driver logs the reason and
+    runs the scan engine (K2 per frame, kernel 2)."""
+    base = write_inputs(WORK, frames=512, replicas=TOPK_REPLICAS, topk="topk")
+    cfg = _cut_ini(base, f"k{SCAN_TOPK_K}", sweeps=SCAN_TOPK_FRAMES)
+    cfg.write_text(cfg.read_text().replace(f"max_neighbors = {TOPK_K}",
+                                           f"max_neighbors = {SCAN_TOPK_K}"))
+    log = logging.getLogger("cmdlmc_tpu_torch.driver")
+    messages = _Messages()
+    log.addHandler(messages)
+    try:
+        text, sim, launches, wall = _run_counted(cfg)
+    finally:
+        log.removeHandler(messages)
+    route = [m for m in messages.lines if "scan engine" in m]
+    header, rows, _ = parse_rows(text)
+    if (not sim.use_scan or not route or f"k={SCAN_TOPK_K}" not in route[0]
+            or launches["pairwise_cubic"] != SCAN_TOPK_FRAMES or launches["threefry"] <= 0
+            or any(launches[k] for k in ("topk_sweep", "knn_tables", "knn_sparse"))
+            or len(rows) != len(range(0, SCAN_TOPK_FRAMES, PRINT_FREQ))):
+        raise AssertionError(f"{TOPK_SCAN}: route {sim.use_scan}, log {route}, "
+                             f"launches {launches}, {len(rows)} rows")
+    stats = _replica_stats(sim.final_states, SCAN_TOPK_FRAMES)
+    say(f"[scan] {TOPK_SCAN}: the log says: {route[0]}")
+    say(f"[scan] {TOPK_SCAN}: launches {launches}; {SCAN_TOPK_FRAMES} frames in "
+        f"{wall:.2f} s ({1e3 * wall / SCAN_TOPK_FRAMES:.3f} ms per frame); "
+        f"{float(stats['events per frame'].mean()):.4f} events per replica-frame, last "
+        f"row {rows[-1]} ({card})")
+    return launches
+
+
+def _scan_water(card: str):
+    """The water N=216 R=8192 deployment through the kmc_water main with a
+    2001-point conversion table (the 57-point table sampled by linear
+    interpolation: the same function): the scan engine; held in
+    distribution against the same run through K7 with the 57-point table."""
+    import numpy as np
+    import torch
+
+    _, _, x, y = _water_transform("interp")
+    xs = np.linspace(float(x[0]), float(x[-1]), SCAN_TABLE_POINTS)
+    table = WORK / f"water_conversion_{SCAN_TABLE_POINTS}.txt"
+    np.savetxt(table, np.stack([xs, np.interp(xs, x, y)], axis=1), fmt="%.9g")
+    base = write_water_inputs(WORK, W_SITES, SCAN_WATER_FRAMES, W_REPLICAS)
+    cfg = base.with_name(f"{base.stem}_table{SCAN_TABLE_POINTS}.cfg")
+    cfg.write_text(base.read_text() + f"conversion_data {table}\n")
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    text, states = _run_water(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    header, rows, _ = _water_rows(text)
+    if (launches["pairwise_cubic"] != SCAN_WATER_FRAMES or launches["threefry"] <= 0
+            or launches["water_sweep"] or launches["knn_tables"]
+            or len(rows) != len(range(0, SCAN_WATER_FRAMES, PRINT_FREQ))
+            or not bool(torch.isfinite(states.displacement).all())):
+        raise AssertionError(f"{WATER_SCAN}: launches {launches}, {len(rows)} rows")
+    fused = write_water_inputs(WORK, W_SITES, SCAN_WATER_FRAMES, W_REPLICAS, interp=True)
+    _, k7_states = _run_water(fused, "cuda")
+
+    def stats(st):
+        return {"events per frame": st.clock.event_count.double() / SCAN_WATER_FRAMES,
+                "msd": (st.displacement.double() ** 2).sum(dim=-1)}
+
+    say(f"[scan] {WATER_SCAN}: launches {launches}; {SCAN_WATER_FRAMES} frames in "
+        f"{wall:.2f} s ({1e3 * wall / SCAN_WATER_FRAMES:.3f} ms per frame, "
+        f"{W_SITES * W_REPLICAS * SCAN_WATER_FRAMES / wall:.4e} site-updates/s) ({card})")
+    _in_distribution(WATER_SCAN, stats(states), stats(k7_states),
+                     "K7 route (57-point table)")
+    return launches
+
+
+def phase_scan(card: str):
+    """The scan engine on the card: small runs held against the CPU (dense
+    through backend = scan; top-K k=24 through backend = auto with 20 jump
+    bins and the matrix; hydronium with its interpolator's blend through
+    backend = scan), then bench.py's deployment at R=16384 (backend = scan),
+    the top-K k=24 deployment (backend = auto) and the water N=216
+    deployment with a 2001-point table (the kmc_water main), each with its
+    own launch counts."""
+    t0 = time.perf_counter()
+    small = write_inputs(WORK, frames=64, replicas=256)
+    _small_cuda_vs_cpu("dense scan", _cut_ini(small, "scan", engine=("backend = scan",)),
+                       scan=True)
+    small_topk = write_inputs(WORK, frames=64, replicas=256, topk="topk", jumpstat=True)
+    cfg = _cut_ini(small_topk, f"k{SCAN_TOPK_K}")
+    cfg.write_text(cfg.read_text().replace(f"max_neighbors = {TOPK_K}",
+                                           f"max_neighbors = {SCAN_TOPK_K}"))
+    _small_cuda_vs_cpu(f"top-K k={SCAN_TOPK_K} auto", cfg, scan=True)
+    small_hyd = write_inputs(WORK, frames=64, replicas=256, topk="hydronium")
+    _small_cuda_vs_cpu("hydronium scan",
+                       _cut_ini(small_hyd, "scan", engine=("backend = scan",)), scan=True)
+    paths = {DENSE_SCAN: _scan_dense(card), TOPK_SCAN: _scan_topk(card),
+             WATER_SCAN: _scan_water(card)}
+    say(f"[scan] the scan phases took {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -3929,8 +4297,9 @@ def _range_device_ms(events, name, exclude=()) -> float:
 
 def phase_profile(card: str):
     """Where the end-to-end run's time goes: the bench.py deployment with
-    fresh and with stale rates, both top-K supercells and the water N=216
-    deployment (through the kmc_water main), each traced with
+    fresh and with stale rates, both top-K supercells, the water N=216
+    deployment (through the kmc_water main) and the dense deployment through
+    the scan engine (64 frames), each traced with
     torch.profiler after a warm run. The fresh run is traced four times, in
     turns with K1's lists sized on the host (LIST_SCRATCH_BUDGET = 0: the
     host waits for the counted lengths before each launch) and on the device
@@ -3987,7 +4356,11 @@ def phase_profile(card: str):
             ("box4", write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4"),
              {"K4": ("topk_sweep_kernel",), **knn}),
             ("water", water_cfg, {"K7": ("water_sweep_kernel", "water_prefix_kernel",
-                                         "water_pack_kernel"), "K5": k5})]
+                                         "water_pack_kernel"), "K5": k5}),
+            # the scan engine over 64 frames (its trace holds some 600
+            # device records a frame); K2 first: one launch a frame
+            ("dense scan", _cut_ini(fresh, "scan_profile", ("backend = scan",), sweeps=64),
+             {"K2": ("pairwise_kernel",), "kernel 2": ("threefry_kernel",)})]
     from cmdlmc_tpu_torch.ops import kmc_sweep_streamed as kss
 
     scratch_budget = kss.LIST_SCRATCH_BUDGET
@@ -4119,6 +4492,8 @@ def main() -> int:
     phase_host_io(card)
     paths.update(phase_resume(card))
     paths.update(phase_xyz(card))
+    kernel2 = phase_threefry(dev)
+    paths.update(phase_scan(card))
     if opts.profile:
         phase_profile(card)
 
@@ -4157,6 +4532,11 @@ def main() -> int:
          "source": "cmdlmc_tpu_torch/csrc/water_sweep.cu",
          "replaces": "cmdlmc_tpu/ops/water_sweep.py:506",
          "launches": paths[W216]["water_sweep"], **k7},
+        {"name": "threefry2x32", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/threefry.cu",
+         "replaces": "none (port-only): the threefry hash of jax.random in the JAX "
+                     "scan engine, cmdlmc_tpu/engine/clock.py:70-75",
+         "launches": paths[DENSE_SCAN]["threefry"], **kernel2},
     ]
     say(f"[e2e] launches by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,9 @@ reference) to PyTorch with hand-written CUDA kernels for NVIDIA Hopper
 The package imports ``torch`` and never ``jax``. Every CUDA kernel has a plain
 PyTorch version beside it in the same module; a wrapper runs the plain version
 only for tensors on the CPU and launches its kernel for tensors on the card.
+Configurations no kernel runs take the scan engine (``engine/lattice.py``,
+``models/water.py``), whose random numbers are JAX's own threefry draws
+(``ops/threefry.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,17 @@
 """``kmc_water`` of the PyTorch/CUDA port: single-excess-proton water KMC.
 
-Port of ``cmdlmc_tpu/cli/kmc_water.py`` on its fused path: subcommands
-``load`` (run a keyword config file), ``config_help`` and ``config_file``;
-column output with Step/Time/position/neighbor/jumps/fps, or xyz output.
-``--device cuda`` (the default) runs kernels K5 and K7 and raises without a
-card; ``--device cpu`` runs their plain PyTorch versions, whose states are
-those of the JAX package's fused path in interpret mode. Each print frame
-shows replica 0's site after that frame and the block-end jumps and
+Port of ``cmdlmc_tpu/cli/kmc_water.py``: subcommands ``load`` (run a
+keyword config file), ``config_help`` and ``config_file``; column output
+with Step/Time/position/neighbor/jumps/fps, or xyz output. A model the
+water kernel runs (``models/water.py::water_unsupported_reason``) takes the
+fused path: kernels K5 and K7 on the card, their plain PyTorch versions with
+``--device cpu`` (whose states are those of the JAX package's fused path in
+interpret mode). Any other model (a triclinic cell, ``n_atoms`` outside 3
+and 4, an interpolation table above 1024 points) takes the scan engine
+(``run_water_block``, the JAX package's draws from the keys
+``split(fold_in(key(seed), 1), R)``), as the JAX CLI's scan branch does.
+``--device cuda`` is the default and raises without a card. Each print
+frame shows replica 0's site after that frame and the block-end jumps and
 correction, the JAX CLI's rule on its scan backend. The trajectory is an
 xyz file or, by its ``.h5``/``.hdf5`` suffix, an HDF5 file (h5py needed).
 
@@ -16,11 +21,14 @@ xyz file or, by its ``.h5``/``.hdf5`` suffix, an HDF5 file (h5py needed).
 from __future__ import annotations
 
 import argparse
+import logging
 import sys
 import time as _time
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def build_model(settings, device):
@@ -72,14 +80,15 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
     """Run a KMCWater configuration and print its rows to ``out``.
     ``initial_states`` replaces the port's own start (a WaterState, e.g. the
     JAX package's carried over by ``convert.water_states_from_fields``);
-    ``tile`` is the logical RNG tile (None: the JAX package's TPU rule).
-    Returns the final WaterState."""
+    ``tile`` is the fused path's logical RNG tile (None: the JAX package's
+    TPU rule). Returns the final WaterState."""
     from cmdlmc_tpu_torch.config.keyword import print_settings
     from cmdlmc_tpu_torch.driver import resolve_device
     from cmdlmc_tpu_torch.io.hdf5 import HDF5Trajectory
     from cmdlmc_tpu_torch.io.stream import frame_blocks, prefetch
     from cmdlmc_tpu_torch.io.xyz import XYZTrajectory, write_xyz_frame
     from cmdlmc_tpu_torch.models import water as wm
+    from cmdlmc_tpu_torch.ops import threefry
 
     out = out or sys.stdout
     device = resolve_device(device)
@@ -96,7 +105,8 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
     model = build_model(settings, device)
     reason = wm.water_unsupported_reason(model)
     if reason:
-        raise NotImplementedError(reason)
+        logger.warning("the water kernel refuses this model (%s); running the "
+                       "scan engine", reason)
     fname = settings.filename
     if fname is None:
         raise ValueError("KMCWater config needs 'filename'")
@@ -106,6 +116,7 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
         traj = XYZTrajectory(fname, time_step=dt, repeat=False)
 
     states = initial_states
+    keys = None
     start_time = _time.time()
     printed_header = False
     site_disp = prev_pos = None
@@ -129,10 +140,19 @@ def kmc_water_main(settings, out=None, device="cuda", initial_states=None,
             site_disp = torch.zeros((positions.shape[1], 3), dtype=torch.float32,
                                     device=device)
             prev_pos = positions[0]
-        states, site_disp, prev_pos, trunc, site_trace = wm.run_water_block_fused(
-            model, states, positions, block.start, site_disp=site_disp,
-            prev_pos=prev_pos, dt=dt, seed=settings.seed, tile=tile)
-        trunc_total = trunc.sum() if trunc_total is None else trunc_total + trunc.sum()
+        if reason:
+            if keys is None:
+                keys = threefry.split(threefry.fold_in(
+                    threefry.key(settings.seed, device), 1), states.site.shape[0])
+            states, sites, _ = wm.run_water_block(
+                model, states, keys, positions,
+                range(block.start, block.start + block.n_frames), dt=dt)
+            site_trace = sites[:, 0]
+        else:
+            states, site_disp, prev_pos, trunc, site_trace = wm.run_water_block_fused(
+                model, states, positions, block.start, site_disp=site_disp,
+                prev_pos=prev_pos, dt=dt, seed=settings.seed, tile=tile)
+            trunc_total = trunc.sum() if trunc_total is None else trunc_total + trunc.sum()
         frames_total += block.n_frames
         # each print frame reports replica 0's site after that frame, and the
         # block-end jumps and correction, as the JAX CLI's scan branch does

@@ -1,10 +1,13 @@
-"""Carry parameters and state over from the JAX package.
+"""Carry parameters, state and keys over from the JAX package.
 
-The JAX package initializes replicas with threefry, which the port does not
-reproduce; parity runs therefore hand the JAX package's own initial state to
-``Simulation(cfg, initial_state=...)``. Everything here reads plain
-attributes through ``np.asarray``, so this module never imports ``jax``: it
-takes the JAX objects (or anything with the same fields) as they come.
+The JAX package initializes replicas with threefry draws that the port's
+``init_replicas`` does not reproduce; parity runs therefore hand the JAX
+package's own initial state to ``Simulation(cfg, initial_state=...)``. The
+scan engine's keys are JAX's own bit for bit (``ops/threefry.py``);
+:func:`keys_from_numpy` takes JAX key data over, ``threefry.key_data``
+gives it back. Everything here reads plain attributes through
+``np.asarray``, so this module never imports ``jax``: it takes the JAX
+objects (or anything with the same fields) as they come.
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ from cmdlmc_tpu_torch.topo.models import (
 
 def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def keys_from_numpy(keys, device="cpu") -> torch.Tensor:
+    """The port's key tensor (int64 words) from JAX key data, uint32
+    [..., 2] (``np.asarray(jax.random.key_data(keys))``)."""
+    return _t(np.asarray(keys, dtype=np.uint32), device, np.int64)
 
 
 def neighbor_carry_from_fields(carry, k: int, device="cpu") -> NeighborCarry:

@@ -16,7 +16,11 @@ supercell too): it
      the small cell crosses PCIe) and advances them through
      ``engine/fused.py`` (kernel K3, stage 1 + K1, or for the top-K models
      stage 1 + K4, with the neighbor carry of Verlet candidate reuse
-     threaded from block to block), cut at every print or reset frame,
+     threaded from block to block), cut at every print or reset frame; or
+     through the scan engine (``engine/lattice.py::run_block``) with
+     ``[Engine] backend = scan``, and with ``auto`` where the kernels refuse
+     the configuration (a skewed triclinic cell, k above the top-K kernel's
+     16), as the JAX package routes its CPU runs,
   4. prints the reference's '#'-commented column output, then with
      ``[Output] jumpstat_bins`` the jumpstat block (:func:`jumpstat_lines`)
      and with ``[Engine] jumpmatrix_filename`` saves the jump matrix summed
@@ -24,8 +28,11 @@ supercell too): it
      frames with replica 0's protons as pseudo-atoms (:meth:`xyz_rows`),
   5. with ``[Engine] checkpoint_path`` resumes from the checkpoint there if
      it exists (bit for bit: the kernels key their draws by seed, absolute
-     frame and event ordinal) and saves every ``checkpoint_interval`` blocks
-     and at the end (``utils/checkpoint.py``, the JAX package's layout).
+     frame and event ordinal, the scan engine by its keys and event
+     ordinal) and saves every ``checkpoint_interval`` blocks and at the end
+     (``utils/checkpoint.py``, the JAX package's layout, with the scan
+     engine's keys ``split(fold_in(key(seed), 1), R)``, so either package
+     resumes the other's checkpoints).
 
 Trajectories are xyz files (the native tokenizer where it builds) or HDF5
 files (``io/hdf5.py``; h5py is imported only when one is read).
@@ -54,6 +61,7 @@ from cmdlmc_tpu_torch.engine import lattice as eng
 from cmdlmc_tpu_torch.io.hdf5 import HDF5Trajectory
 from cmdlmc_tpu_torch.io.stream import frame_blocks, prefetch
 from cmdlmc_tpu_torch.io.xyz import XYZTrajectory, write_xyz_frame
+from cmdlmc_tpu_torch.ops import threefry
 from cmdlmc_tpu_torch.rates import laws as rate_laws
 from cmdlmc_tpu_torch.topo import models as topo_models
 from cmdlmc_tpu_torch.topo import transforms as topo_transforms
@@ -86,8 +94,6 @@ def unsupported_reason(cfg: SimulationConfig) -> str | None:
     if topo.type_ not in ("NeighborTopology", "AngleTopology", "HydroniumTopology"):
         return (f"topology type {topo.type_!r} is not supported by mdmc; the water "
                 "family runs through cli/kmc_water.py (ROADMAP A16)")
-    if cfg.engine.backend == "scan":
-        return "the scan engine is not ported yet (ROADMAP A12)"
     if (topo.type_ == "AngleTopology"
             and tuple(int(m) for m in cfg.atombox.box_multiplier) != (1, 1, 1)):
         return ("AngleTopology with a box_multiplier is not ported yet: the JAX "
@@ -237,25 +243,8 @@ def jumpstat_lines(states, hist_range, bins, dt):
 def _fused_obs_stats(states: eng.EnsembleState, variance_mode="replicas"):
     """Device-side reduction of block-boundary observables into one vector:
     [msd_mean(3), msd_var(3), autocorr_mean, autocorr_var, jumps_mean,
-    msd4_mean]."""
-    msd, autocorr = eng.observables_of(states.replicas, states.site_disp)
-    autocorr = autocorr.to(torch.float32)
-    if variance_mode == "protons":
-        pv_msd, pv_auto = eng.per_proton_variance(states.replicas, states.site_disp)
-        msd_var, autocorr_var = pv_msd.mean(dim=0), pv_auto.mean()
-    else:
-        msd_var = msd.var(dim=0, correction=0)
-        autocorr_var = autocorr.var(correction=0)
-    return torch.cat([
-        msd.mean(dim=0),
-        msd_var,
-        torch.stack([
-            autocorr.mean(),
-            autocorr_var,
-            states.replicas.jumps.to(torch.float32).mean(),
-            eng.displacement_moment4(states.replicas, states.site_disp).mean(),
-        ]),
-    ])
+    msd4_mean] (the scan engine's row without its events mean)."""
+    return eng.row_stats(states.replicas, states.site_disp, variance_mode)[:10]
 
 
 @dataclasses.dataclass
@@ -310,11 +299,6 @@ class Simulation:
         reason = unsupported_reason(cfg)
         if reason:
             raise NotImplementedError(reason)
-        if cfg.engine.stale_rates and _topk_config(cfg):
-            logger.warning(
-                "[Engine] stale_rates only changes the fused DENSE backends; "
-                "the top-K kernel path recomputes in-frame rates after each "
-                "event (distributionally equivalent at rate*dt << 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cell = build_cell(cfg, self.device)
@@ -322,8 +306,9 @@ class Simulation:
         self.angle = cfg.topology.type_ == "AngleTopology"
         if self.angle and not cfg.topology.extra_atoms:
             raise ValueError("AngleTopology requires extra_atoms in the topology section")
-        # AngleTopology's model needs the first frame: built in _stream
-        self.model = None
+        # AngleTopology's model needs the first frame: built in _stream; the
+        # route (the scan engine or a kernel) is set with the model
+        self.model = self.use_scan = None
         if not self.angle:
             self._set_model(build_model(cfg, self.cell, self.law))
         self.trajectory = build_trajectory(cfg)
@@ -340,7 +325,7 @@ class Simulation:
         self.track_jump_matrix = bool(cfg.engine.jumpmatrix_filename)
         self.final_states = None
         self._max_truncation = 0.0
-        self._fused_trunc = None  # device scalar: max truncated fraction
+        self._trunc = None  # device scalar: max truncated fraction
         # (frames, stacked device stats) awaiting a host fetch: each block's
         # rows are fetched one block late so the copy rides under the next
         # block's kernels
@@ -351,9 +336,27 @@ class Simulation:
         self._steady_frames0 = 0
 
     def _set_model(self, model):
+        """Take the model and its route, the JAX driver's rule: ``backend =
+        scan`` runs the scan engine; ``fused`` a kernel, or raises with the
+        reason the kernels refuse the configuration; ``auto`` a kernel where
+        one runs it, else the scan engine (logged once)."""
+        cfg = self.cfg
+        backend = cfg.engine.backend
         reason = eng_fused.fused_unsupported_reason(model, self.cell)
-        if reason:
-            raise NotImplementedError(reason)
+        if backend == "fused" and reason:
+            raise ValueError(
+                "backend = fused was requested but the fused kernel cannot run "
+                f"this configuration ({reason}); use backend = auto or scan")
+        self.use_scan = backend != "fused" and (backend != "auto" or reason is not None)
+        if self.use_scan and backend == "auto":
+            logger.warning("backend = auto: the kernels refuse this configuration "
+                           "(%s); running the scan engine", reason)
+        if cfg.engine.stale_rates and (self.use_scan or _topk_config(cfg)):
+            logger.warning(
+                "[Engine] stale_rates only changes the fused DENSE backends; "
+                "the %s path recomputes in-frame rates after each event "
+                "(distributionally equivalent at rate*dt << 1)",
+                "scan" if self.use_scan else "top-K kernel")
         self.model = model
 
     # -- streaming --------------------------------------------------------------
@@ -405,8 +408,8 @@ class Simulation:
         return self._stream(xyz=True)
 
     def _load_checkpoint(self, path: str):
-        """(states, keys, next frame) of the checkpoint at ``path``, refused
-        when it was written under different physics."""
+        """(states, keys as key data or None, next frame) of the checkpoint
+        at ``path``, refused when it was written under different physics."""
         from cmdlmc_tpu_torch.utils.checkpoint import load_checkpoint
 
         states, keys, resume_frame, meta = load_checkpoint(
@@ -429,7 +432,7 @@ class Simulation:
         from cmdlmc_tpu_torch.utils.checkpoint import CheckpointWriter
 
         cfg = self.cfg
-        states = keys = None
+        states = keys = keys_host = None
         ckpt_path = cfg.engine.checkpoint_path
         # saves ride under the next blocks' kernels (the writer snapshots
         # the state on the device first: the loop updates it in place)
@@ -437,7 +440,7 @@ class Simulation:
         resume_frame = blocks_done = last_frame_done = 0
         last_ckpt_frame = -1
         if ckpt_path and os.path.exists(ckpt_path):
-            states, keys, resume_frame = self._load_checkpoint(ckpt_path)
+            states, keys_host, resume_frame = self._load_checkpoint(ckpt_path)
             # a re-run of a finished run simulates nothing again
             last_frame_done = resume_frame
         for block, donors, extras in self._blocks(skip_until=resume_frame):
@@ -456,64 +459,27 @@ class Simulation:
                                             donors[0], extras[0]))
             if states is None:
                 states = self._initial_states(donors)
-            # cut the block so every launch ends where a row is printed or the
-            # observables reset (the reference's per-frame cadence)
-            pending = []
-            donors_np = None
-            for sub_start, sub_end in self._fused_spans(block.start, block_end):
-                lo, hi = sub_start - block.start, sub_end - block.start
-                states, trunc = eng_fused.run_block_fused(
-                    self.model, self.cell, states, donors[lo:hi], sub_start,
-                    dt=self.dt,
-                    max_events=cfg.engine.max_events_per_frame,
-                    seed=cfg.engine.seed,
-                    tile=cfg.engine.tile,
-                    return_truncation=True,
-                    stale_rates=cfg.engine.stale_rates,
-                    extras_positions=extras[lo:hi] if self.angle else None,
-                    nbr_reuse={"auto": None, "on": True, "off": False}[
-                        cfg.engine.nbr_reuse],
-                    hist_range=self.hist_range,
-                    donate=True,
-                )
-                # stays on the device; fetched once at the end of the run
-                frac = trunc.sum() / (trunc.shape[0] * (sub_end - sub_start))
-                self._fused_trunc = (
-                    frac if self._fused_trunc is None
-                    else torch.maximum(self._fused_trunc, frac)
-                )
-                states, pend = self._fused_post(states, sub_end, snapshot=not xyz)
-                pending.extend(pend)
-                f = sub_end - 1
-                if (xyz and f % cfg.output.print_frequency == 0
-                        and f >= cfg.engine.equilibration_sweeps):
-                    if donors_np is None:
-                        donors_np = donors.cpu().numpy()
-                    sites0 = states.replicas.site_of_proton[0].cpu().numpy()
-                    yield self._format_xyz(donors_np[f - block.start], sites0, f)
+            if keys_host is None:
+                # the scan engine's keys, as the JAX driver makes them (a
+                # checkpoint's when it carries them); every save writes them
+                keys_host = threefry.key_data(threefry.split(threefry.fold_in(
+                    threefry.key(cfg.engine.seed), 1), states.replicas.occ.shape[0]))
             blocks_done += 1
             will_ckpt = (ckpt_path and cfg.engine.checkpoint_interval > 0
                          and blocks_done % cfg.engine.checkpoint_interval == 0)
+            if self.use_scan:
+                if keys is None:
+                    keys = torch.from_numpy(keys_host.astype(np.int64)).to(self.device)
+                states = yield from self._scan_block(states, keys, block, donors,
+                                                     extras, xyz)
+            else:
+                states = yield from self._fused_block(states, block, donors, extras,
+                                                      xyz, will_ckpt)
             if self._steady_t0 is None:
                 self._steady_t0 = time.time()
                 self._steady_frames0 = block_end
-            if not xyz:
-                # this block's rows are fetched after the next block's
-                # launches, so the copy rides under its kernels
-                prev_batch = self._fused_stats_pending
-                self._fused_stats_pending = (
-                    ([f for f, _ in pending], torch.stack([s for _, s in pending]))
-                    if pending else None
-                )
-                if prev_batch is not None:
-                    yield from self._emit_fused(prev_batch)
-                if will_ckpt and self._fused_stats_pending is not None:
-                    # a checkpoint never covers frames whose rows were not
-                    # printed (a crash after the save would lose them)
-                    yield from self._emit_fused(self._fused_stats_pending)
-                    self._fused_stats_pending = None
             if will_ckpt:
-                ckpt_writer.save(states, keys, block_end, meta=self._ckpt_meta())
+                ckpt_writer.save(states, keys_host, block_end, meta=self._ckpt_meta())
                 last_ckpt_frame = block_end
             last_frame_done = block_end
         if self._fused_stats_pending is not None:  # flush the deferred block
@@ -523,9 +489,98 @@ class Simulation:
         if (ckpt_path and states is not None and blocks_done > 0
                 and last_frame_done != last_ckpt_frame):
             # the last block's save already holds this frame
-            ckpt_writer.save(states, keys, last_frame_done, meta=self._ckpt_meta())
+            ckpt_writer.save(states, keys_host, last_frame_done, meta=self._ckpt_meta())
         if ckpt_writer is not None:
             ckpt_writer.close()  # the run is complete only once the file is
+
+    def _fused_block(self, states, block, donors, extras, xyz: bool, will_ckpt):
+        """One block through the kernels, cut into spans that end where a
+        row is printed or the observables reset (the reference's per-frame
+        cadence): yields its print frames (xyz mode) or the previous block's
+        observable records (fetched after this block's launches, so the copy
+        rides under its kernels), and returns the states."""
+        cfg = self.cfg
+        pending = []
+        donors_np = None
+        for sub_start, sub_end in self._fused_spans(block.start, block.start + block.n_frames):
+            lo, hi = sub_start - block.start, sub_end - block.start
+            states, trunc = eng_fused.run_block_fused(
+                self.model, self.cell, states, donors[lo:hi], sub_start,
+                dt=self.dt,
+                max_events=cfg.engine.max_events_per_frame,
+                seed=cfg.engine.seed,
+                tile=cfg.engine.tile,
+                return_truncation=True,
+                stale_rates=cfg.engine.stale_rates,
+                extras_positions=extras[lo:hi] if self.angle else None,
+                nbr_reuse={"auto": None, "on": True, "off": False}[
+                    cfg.engine.nbr_reuse],
+                hist_range=self.hist_range,
+                donate=True,
+            )
+            # stays on the device; fetched once at the end of the run
+            self._fold_truncation(trunc.sum() / (trunc.shape[0] * (sub_end - sub_start)))
+            states, pend = self._fused_post(states, sub_end, snapshot=not xyz)
+            pending.extend(pend)
+            f = sub_end - 1
+            if (xyz and f % cfg.output.print_frequency == 0
+                    and f >= cfg.engine.equilibration_sweeps):
+                if donors_np is None:
+                    donors_np = donors.cpu().numpy()
+                sites0 = states.replicas.site_of_proton[0].cpu().numpy()
+                yield self._format_xyz(donors_np[f - block.start], sites0, f)
+        if not xyz:
+            prev_batch = self._fused_stats_pending
+            self._fused_stats_pending = (
+                ([f for f, _ in pending], torch.stack([s for _, s in pending]))
+                if pending else None
+            )
+            if prev_batch is not None:
+                yield from self._emit_fused(prev_batch)
+            if will_ckpt and self._fused_stats_pending is not None:
+                # a checkpoint never covers frames whose rows were not
+                # printed (a crash after the save would lose them)
+                yield from self._emit_fused(self._fused_stats_pending)
+                self._fused_stats_pending = None
+        return states
+
+    def _scan_block(self, states, keys, block, donors, extras, xyz: bool):
+        """One block through the scan engine: yields its print frames (xyz
+        mode) or its observable records, and returns the states."""
+        cfg = self.cfg
+        frames = eng.block_frames(donors, block.start, self.dt, extras)
+        kw = dict(dt=self.dt, max_events=cfg.engine.max_events_per_frame,
+                  reset_frequency=cfg.output.reset_frequency,
+                  hist_range=tuple(self.hist_range),
+                  emit_every=cfg.output.print_frequency,
+                  equilibration=cfg.engine.equilibration_sweeps)
+        eq, pf = cfg.engine.equilibration_sweeps, cfg.output.print_frequency
+        if xyz:
+            states, rows, sites = eng.run_block_with_sites(
+                self.model, self.cell, states, keys, frames, **kw)
+            self._fold_truncation(rows.truncated_mean.max())
+            donors_np, sites_np = donors.cpu().numpy(), sites.cpu().numpy()
+            for i, f in enumerate(frames.index.tolist()):
+                if f >= eq and f % pf == 0:
+                    yield self._format_xyz(donors_np[i], sites_np[i], f)
+            return states
+        states, rows = eng.run_block(self.model, self.cell, states, keys, frames,
+                                     variance_mode=cfg.output.variance_mode, **kw)
+        rows = rows.cpu()
+        self._fold_truncation(rows.truncated_mean.max())
+        for i, f in enumerate(rows.frame.tolist()):
+            if f >= eq and f % pf == 0:
+                yield ObservableRecord(
+                    frame=f, time=float(rows.time[i]), msd=rows.msd_mean[i].numpy(),
+                    msd_var=rows.msd_var[i].numpy(),
+                    autocorr=float(rows.autocorr_mean[i]),
+                    autocorr_var=float(rows.autocorr_var[i]),
+                    jumps=float(rows.jumps_mean[i]), msd4=float(rows.msd4_mean[i]))
+        return states
+
+    def _fold_truncation(self, frac: torch.Tensor):
+        """Keep the largest truncated fraction on the device."""
+        self._trunc = frac if self._trunc is None else torch.maximum(self._trunc, frac)
 
     def _initial_states(self, donors):
         """The run's first state: the given initial state (its jump matrix
@@ -537,7 +592,7 @@ class Simulation:
                 "lattice_size=%d but trajectory provides %d donor sites; using %d",
                 cfg.kmc.lattice_size, n_sites, n_sites,
             )
-        if cfg.output.print_frequency < 8:
+        if cfg.output.print_frequency < 8 and not self.use_scan:
             logger.warning(
                 "print_frequency=%d cuts every kernel launch to %d frames with "
                 "a host fetch each",
@@ -563,9 +618,9 @@ class Simulation:
 
     def _truncation_fraction(self) -> float:
         """Fold the on-device truncation accumulator into ``_max_truncation``."""
-        if self._fused_trunc is not None:
-            frac = float(self._fused_trunc)
-            self._fused_trunc = None
+        if self._trunc is not None:
+            frac = float(self._trunc)
+            self._trunc = None
             self._max_truncation = max(self._max_truncation, frac)
         return self._max_truncation
 

@@ -20,6 +20,10 @@ jump histograms and the jump matrix where the state carries them:
   threaded through ``EnsembleState.nbr_carry``; kernel K4 runs the event
   loop over them, triclinic cells included where the round-based minimum
   image is exact.
+
+What no kernel runs (:func:`fused_unsupported_reason`: a triclinic cell too
+skewed for the round-based minimum image, k above K4's 16, a law with no
+kernel) runs on the scan engine (``engine/lattice.py::run_block``).
 """
 
 from __future__ import annotations
@@ -56,8 +60,9 @@ INKERNEL_MAX_SITES = 224
 
 
 def fused_unsupported_reason(model, cell: Cell) -> str | None:
-    """None if a port kernel can run this model and cell, else the reason,
-    naming the ROADMAP item that will add it."""
+    """None if a port kernel can run this model and cell, else the reason;
+    the driver then runs the scan engine (``engine/lattice.py::run_block``)
+    for ``backend = auto`` and raises for ``backend = fused``."""
     # the round-based minimum image of the kernels (K1, K4) is exact only for
     # vectors shorter than half the smallest cell height; candidate pair
     # vectors reach cutoff + buffer
@@ -66,8 +71,7 @@ def fused_unsupported_reason(model, cell: Cell) -> str | None:
         return (
             f"triclinic cell too skewed for the kernels' round-based minimum "
             f"image: cutoff+buffer ({cutbuf:.2f}) >= half the smallest "
-            f"perpendicular cell height ({0.5 * cell.min_height:.2f}); the "
-            "scan engine is not ported yet (ROADMAP A12)"
+            f"perpendicular cell height ({0.5 * cell.min_height:.2f})"
         )
     if isinstance(model, TopKRates):
         return ts.topk_unsupported_reason(model)

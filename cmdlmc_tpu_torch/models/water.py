@@ -5,14 +5,19 @@ proton per replica hops between the K = ``n_atoms`` nearest oxygens of its
 site, with rescaled distances (linear, ramp or an interpolation table), the
 relaxation blend after a jump, the waiting time, the back-connection kept
 rescaled (``keep_last_neighbor_rescaled``, ``check_from_old``) and the d_OH
-correction of the tracked position. :func:`run_water_block_fused` builds a
-block's tables (``ops/water_sweep.py::water_tables``: kernel K5 on the card)
-and runs the event loop (kernel K7 on the card, its plain version on the
-CPU).
+correction of the tracked position. Two engines:
 
-Not ported here: the scan model ``run_water_block`` (it needs the generic
-engine, ROADMAP A12) and ``run_water_block_fused_sharded`` (A18); a
-configuration the fused kernel cannot run raises ``NotImplementedError``.
+* :func:`run_water_block_fused` builds a block's tables
+  (``ops/water_sweep.py::water_tables``: kernel K5 on the card) and runs the
+  event loop (kernel K7 on the card, its plain version on the CPU), for the
+  models :func:`water_unsupported_reason` lets through;
+* :func:`run_water_block`, the scan engine, one step per frame over all
+  replicas with the JAX package's clock and draws (``engine/clock.py``,
+  ``ops/threefry.py``): any cell, law, transform and ``n_atoms``. Its
+  per-frame neighbor tables come from kernel K2's distances on the card
+  for an orthorhombic cell.
+
+Not ported: ``run_water_block_fused_sharded`` (ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -23,12 +28,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from cmdlmc_tpu_torch.core.cell import Cell
+from cmdlmc_tpu_torch.core.cell import Cell, displacement as cell_displacement, sqrt32
+from cmdlmc_tpu_torch.core.f32 import divisor
+from cmdlmc_tpu_torch.engine import clock as kmc_clock
 from cmdlmc_tpu_torch.engine.clock import ClockState
 from cmdlmc_tpu_torch.engine.fused import pick_tile
 from cmdlmc_tpu_torch.ops import kmc_sweep as ks
+from cmdlmc_tpu_torch.ops import threefry
 from cmdlmc_tpu_torch.ops import water_sweep as ws
+from cmdlmc_tpu_torch.ops.pairwise import pairwise_distance_matrix
 from cmdlmc_tpu_torch.topo import transforms as tr
+from cmdlmc_tpu_torch.topo.models import k_smallest
 
 
 class WaterModel(nn.Module):
@@ -113,24 +123,25 @@ def water_unsupported_reason(model: WaterModel) -> str | None:
     """None if the fused kernel runs this model, else why not (the JAX
     package's ``water_fused_supported`` rules: an orthorhombic cell, a law
     the kernel knows, n_atoms 3 or 4, a linear, ramp or interpolated
-    transform with at most MAX_INTERP_POINTS points). The site count is not
-    limited: K7 reads the site prefix sum from a table in device memory."""
-    scan = "the scan model is not ported yet (ROADMAP A12)"
+    transform with at most MAX_INTERP_POINTS points); the ``kmc_water`` CLI
+    runs such a model on the scan engine (:func:`run_water_block`). The site
+    count is not limited: K7 reads the site prefix sum from a table in
+    device memory."""
     if not model.cell.orthorhombic:
-        return f"the water kernel needs an orthorhombic cell; {scan}"
+        return "the water kernel needs an orthorhombic cell"
     if ks.law_kind(model.law) is None:
-        return f"the water kernel has no law kind for {type(model.law).__name__}; {scan}"
+        return f"the water kernel has no law kind for {type(model.law).__name__}"
     if model.n_atoms not in (3, 4):
-        return f"the water kernel takes n_atoms 3 or 4, got {model.n_atoms}; {scan}"
+        return f"the water kernel takes n_atoms 3 or 4, got {model.n_atoms}"
     t = model.transform
     if t is not None and not isinstance(
             t, (tr.LinearTransformation, tr.ReLUTransformation,
                 tr.InterpolatedTransformation)):
-        return f"the water kernel has no transform {type(t).__name__}; {scan}"
+        return f"the water kernel has no transform {type(t).__name__}"
     if (isinstance(t, tr.InterpolatedTransformation)
             and t.host["x"].shape[0] > ws.MAX_INTERP_POINTS):
         return (f"an interpolation table of {t.host['x'].shape[0]} points exceeds "
-                f"the water kernel's {ws.MAX_INTERP_POINTS}; {scan}")
+                f"the water kernel's {ws.MAX_INTERP_POINTS}")
     return None
 
 
@@ -213,3 +224,133 @@ def run_water_block_fused(model: WaterModel, states: WaterState,
         displacement=out["disp_base"] + s_out[site.long()] + corr,
     )
     return new_states, s_out, prev_out, out["trunc"], out["site_trace"]
+
+
+# ----------------------------------------------------------------------------
+# The scan engine
+# ----------------------------------------------------------------------------
+
+
+def water_shared(model: WaterModel, positions: torch.Tensor):
+    """One frame's shared geometry from oxygen positions [N, 3]: the
+    ``n_atoms`` nearest neighbors of every oxygen (no cutoff), their
+    distances and the rescaled distances: (dist, resc [N, K] float32,
+    nbr [N, K] int32)."""
+    d = pairwise_distance_matrix(model.cell, positions, model.box)
+    n = d.shape[-1]
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=d.device), float("inf"), d)
+    dist, nbr = k_smallest(d, model.n_atoms)
+    resc = model.transform(dist) if model.transform is not None else dist
+    return dist, resc, nbr.to(torch.int32)
+
+
+def _candidates(model: WaterModel, shared, site, last_site, fsj, wait_left):
+    """The 3 candidate transitions of each replica's site: (rates [R, 3],
+    destinations [R, 3]), with the relaxation blend, the back-jump rules
+    and the waiting-time gate."""
+    dist, resc, nbr = shared
+    s = site.long()
+    d_raw, d_resc, neighbors = dist[s], resc[s], nbr[s]
+    if model.relaxation_time > 0:
+        # fsj = -1 right after a jump: the next frame evaluates at factor 0
+        factor = torch.clamp(fsj.to(torch.float32)
+                             / divisor(model.relaxation_time, dist.device), 0.0, 1.0)[:, None]
+        d_eff = d_raw + factor * (d_resc - d_raw)
+    else:
+        d_eff = d_resc
+    if model.keep_last_neighbor_rescaled:
+        # the connection back to the previous oxygen stays fully rescaled
+        had_last = last_site >= 0
+        is_last = (neighbors == last_site[:, None]) & had_last[:, None]
+        d_eff = torch.where(is_last, d_resc, d_eff)
+        if model.n_atoms == 4:
+            # the old oxygen in slot 3 moves to slot 2, among the active three
+            in3 = is_last[:, 3]
+            d_eff = torch.cat([d_eff[:, :2], torch.where(in3, d_eff[:, 3], d_eff[:, 2])[:, None],
+                               d_eff[:, 3:]], dim=1)
+            neighbors = torch.cat([neighbors[:, :2],
+                                   torch.where(in3, neighbors[:, 3], neighbors[:, 2])[:, None],
+                                   neighbors[:, 3:]], dim=1)
+        elif model.check_from_old:
+            # where the connection exists only old -> new, the farthest
+            # candidate gives way to the old oxygen
+            old = torch.clamp(last_site, min=0).long()
+            match = nbr[old] == site[:, None]
+            do_swap = ~is_last.any(dim=-1) & match.any(dim=-1) & had_last
+            rows = torch.arange(site.shape[0], device=site.device)
+            far = torch.argmax(d_eff[:, :3], dim=-1)
+            old_dist = resc[old, torch.argmax(match.to(torch.int32), dim=-1)]
+            d_eff = d_eff.index_put((rows, far), torch.where(do_swap, old_dist,
+                                                             d_eff[rows, far]))
+            neighbors = neighbors.index_put((rows, far), torch.where(
+                do_swap, last_site, neighbors[rows, far]))
+    rates = torch.where(wait_left[:, None] > 0, 0.0, model.law(d_eff[:, :3]))
+    return rates, neighbors[:, :3]
+
+
+def water_frame_step(model: WaterModel, shared, positions: torch.Tensor, frame_idx: int,
+                     dt: float, max_events: int, state: WaterState, keys, tags):
+    """Advance every replica across one frame (oxygen positions [N, 3] and
+    their :func:`water_shared` tables). Returns (state', n_fired [R])."""
+    rows = torch.arange(state.site.shape[0], device=state.site.device)
+    wait0 = model.waiting_time + 1 if model.waiting_time else 0
+    two_d_oh = 2.0 * model.d_oh
+
+    def rate_fn(aux):
+        rates, _ = _candidates(model, shared, *aux[:4])
+        total = rates[:, 0]
+        for j in range(1, rates.shape[1]):  # in slot order, as XLA sums them
+            total = total + rates[:, j]
+        return total
+
+    def apply_fn(aux, event_key, event_phase, fire):
+        site, last_site, fsj, wait_left, jumps, corr = aux
+        rates, cands = _candidates(model, shared, site, last_site, fsj, wait_left)
+        new_site = cands[rows, threefry.categorical(event_key, torch.log(rates))]
+        # d_OH correction per event: the proton lands 2 d_OH short of the
+        # O-O step, so the correction points from the new oxygen to the old
+        vec = cell_displacement(model.cell, positions[new_site.long()],
+                                positions[site.long()])
+        norm = sqrt32(vec[:, 0] * vec[:, 0] + vec[:, 1] * vec[:, 1]
+                      + vec[:, 2] * vec[:, 2]) + 1e-12
+        step = corr + two_d_oh * vec / norm[:, None]
+        # fsj = -1, wait = waiting + 1: the end-of-frame counters run on the
+        # jump frame too
+        return (torch.where(fire, new_site, site), torch.where(fire, site, last_site),
+                torch.where(fire, -1, fsj), torch.where(fire, wait0, wait_left),
+                jumps + fire.to(torch.int32), torch.where(fire[:, None], step, corr))
+
+    aux = (state.site, state.last_site, state.frames_since_jump, state.wait_left,
+           state.jumps, state.correction)
+    clock, aux, n_fired = kmc_clock.frame_step(
+        state.clock, aux, frame_idx=frame_idx, dt=dt, rate_fn=rate_fn,
+        apply_fn=apply_fn, key=keys, max_events=max_events, tags=tags)
+    site, last_site, fsj, wait_left, jumps, corr = aux
+    newpos = positions[site.long()] + corr
+    return WaterState(
+        site=site, last_site=last_site, frames_since_jump=fsj + 1,
+        wait_left=torch.clamp(wait_left - 1, min=0), correction=corr, clock=clock,
+        jumps=jumps, snapshot=newpos,
+        displacement=state.displacement + cell_displacement(model.cell, state.snapshot,
+                                                            newpos),
+    ), n_fired
+
+
+def run_water_block(model: WaterModel, states: WaterState, keys: torch.Tensor,
+                    positions_block: torch.Tensor, frame_indices, *, dt: float,
+                    max_events: int = 4):
+    """The scan engine over a block of frames: oxygen positions [B, N, 3],
+    their absolute indices (host ints), the replicas' keys [R, 2].
+
+    Returns (states', sites [B, R] int32 after each frame, msd [B, 3]: the
+    mean over replicas of the squared displacement)."""
+    tags = kmc_clock.tag_keys(keys)
+    positions_block = positions_block.to(torch.float32)
+    sites, msd = [], []
+    for f, fi in enumerate(torch.as_tensor(frame_indices).tolist()):
+        pos = positions_block[f]
+        states, _ = water_frame_step(model, water_shared(model, pos), pos, int(fi), dt,
+                                     max_events, states, keys, tags)
+        sites.append(states.site)
+        msd.append((states.displacement ** 2).mean(dim=0))
+    return states, torch.stack(sites), torch.stack(msd)

@@ -54,6 +54,7 @@ _SIGNATURES = {
     + [ctypes.POINTER(_I)],
     "cmdlmc_kmc_sweep_caps": [_P, _I, _I] + [_F] * 4 + [_P, _P, _I],
     "cmdlmc_rng_fill": [_P, _I, _I, _P, _P, _P, _I],
+    "cmdlmc_threefry": [_P, _LL, _P, ctypes.c_uint32, _I, _I, _I, _P, _P, _I],
     "cmdlmc_knn_tables": [_P, _I, _I, _I] + [_F] * 4 + [_P] * 5 + [_I] * 5
     + [_P, _P, _P, _I],
     "cmdlmc_knn_bin": [_P, _I, _I] + [ctypes.c_double] * 3 + [_I] * 3

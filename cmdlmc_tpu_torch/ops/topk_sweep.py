@@ -57,8 +57,7 @@ def topk_unsupported_reason(model) -> str | None:
     if kind is None or kind == ks.KIND_FERMI_ANGLE:
         return f"rate law {type(model.law).__name__} has no top-K kernel"
     if model.k > MAX_K:
-        return (f"k={model.k} exceeds the kernel's candidate width ({MAX_K}); "
-                "the scan engine is not ported yet (ROADMAP A12)")
+        return f"k={model.k} exceeds the kernel's candidate width ({MAX_K})"
     return None
 
 

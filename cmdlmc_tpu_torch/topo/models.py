@@ -6,8 +6,8 @@ W[N, N] shared by all replicas; ``TopKShared``, ``k_smallest``,
 ``TopKPairRates`` (the reference's Verlet-list option as a K-nearest list)
 and ``HydroniumRates`` (K closest with a distance transformation and a
 residence-time blend) build per-site neighbor tables, which the top-K event
-loop (``ops/topk_sweep.py``) combines with each replica's state. The
-``replica_omega`` of the scan engine waits for ROADMAP A12.
+loop (``ops/topk_sweep.py``) and the scan engine (``engine/lattice.py``,
+through ``replica_omega``) combine with each replica's state.
 """
 
 from __future__ import annotations
@@ -24,12 +24,16 @@ from cmdlmc_tpu_torch.ops.pairwise import pairwise_distance_matrix
 
 @dataclasses.dataclass
 class Frame:
-    """Donor positions [N, 3], or a block of frames [B, N, 3], and the extra
-    atoms' positions ([M, 3] or [B, M, 3]; the P atoms of AngleTopology).
-    (The JAX Frame's time and index come with the scan engine, ROADMAP A12.)"""
+    """Donor positions [N, 3], or a block of frames [B, N, 3], the extra
+    atoms' positions ([M, 3] or [B, M, 3]; the P atoms of AngleTopology),
+    and for the scan engine the simulation time (float32, index * dt) and
+    the frame index (int32), scalars or [B], host tensors so the engine
+    reads them without a device sync."""
 
     donors: torch.Tensor
     extras: torch.Tensor | None = None
+    time: torch.Tensor | None = None
+    index: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -73,6 +77,10 @@ class PairRates(nn.Module):
         eye = torch.eye(n, dtype=torch.bool, device=d.device)
         valid = (d <= self.cutoff + self.buffer) & ~eye
         return DenseShared(W=torch.where(valid, self.law(d), 0.0), dist=d)
+
+    def replica_omega(self, shared: DenseShared, site_residence: torch.Tensor):
+        """The dense rates are the same for every replica."""
+        return shared
 
 
 def determine_groups(cell: Cell, extras: torch.Tensor, donors: torch.Tensor,
@@ -135,13 +143,15 @@ class AnglePairRates(PairRates):
 class TopKShared:
     """Replica-independent K-nearest geometry of one frame [N, K] or a block
     [B, N, K]: raw distances (1e6 where invalid), distances after the
-    transformation (== dist without one), neighbor indices (int32) and
-    whether each slot is a real neighbor within cutoff+buffer."""
+    transformation (== dist without one), neighbor indices (int32), whether
+    each slot is a real neighbor within cutoff+buffer, and the frame's time
+    where the frame carries one."""
 
     dist: torch.Tensor
     dist_rescaled: torch.Tensor
     nbr: torch.Tensor
     valid: torch.Tensor
+    time: torch.Tensor | None = None
 
 
 def k_smallest(d: torch.Tensor, k: int):
@@ -150,13 +160,12 @@ def k_smallest(d: torch.Tensor, k: int):
     than k finite entries repeats index 0 with distance inf, as argmin over
     an all-inf row gives it."""
     iota = torch.arange(d.shape[-1], device=d.device)
-    inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
     dists, idxs = [], []
     for _ in range(k):
         i = torch.argmin(d, dim=-1)  # first index on ties
         dists.append(torch.gather(d, -1, i[..., None])[..., 0])
         idxs.append(i)
-        d = torch.where(iota == i[..., None], inf, d)
+        d = torch.where(iota == i[..., None], float("inf"), d)
     return torch.stack(dists, dim=-1), torch.stack(idxs, dim=-1)
 
 
@@ -200,7 +209,22 @@ class TopKRates(nn.Module):
         dist = torch.where(valid, dist, 1e6)
         rescaled = self.transform(dist) if self.transform is not None else dist
         return TopKShared(dist=dist, dist_rescaled=rescaled,
-                          nbr=nbr.to(torch.int32), valid=valid)
+                          nbr=nbr.to(torch.int32), valid=valid, time=frame.time)
+
+    def replica_omega(self, shared: TopKShared, site_residence: torch.Tensor):
+        """(omega, nbr, valid) of the scan engine: the law over the rescaled
+        distances, blended by ``interpolator`` over the residence time of the
+        proton on each site (``site_residence`` [..., N], -1 where it never
+        jumped); omega is [N, K] without an interpolator (the same for every
+        replica), else [..., N, K]. TopKPairRates has no transformation, so
+        its rescaled distances are the raw ones."""
+        if self.interpolator is not None:
+            d_eff = self.interpolator(site_residence[..., None], shared.dist,
+                                      shared.dist_rescaled)
+        else:
+            d_eff = shared.dist_rescaled
+        omega = torch.where(shared.valid, self.law(d_eff), 0.0)
+        return omega, shared.nbr, shared.valid
 
 
 class TopKPairRates(TopKRates):

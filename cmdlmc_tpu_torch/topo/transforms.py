@@ -95,13 +95,19 @@ class InterpolatedTransformation(_Buffers):
 
 
 class DistanceInterpolator(_Buffers):
-    """The relaxation time of the linear blend neutral -> relaxed distances
-    over the residence time of the proton on the donor site (a residence
-    time < 0, "never jumped", is fully relaxed). The top-K kernel and its
-    plain version evaluate the blend as d + ratio (r - d)
-    (``ops/topk_sweep.py::candidate_rates``)."""
+    """The linear blend neutral -> relaxed distances over the residence time
+    of the proton on the donor site (a residence time < 0, "never jumped",
+    is fully relaxed), as the scan engine evaluates it: (1 - ratio) neutral
+    + ratio relaxed. The top-K kernel and its plain version evaluate it in
+    their own form, d + ratio (r - d) (``ops/topk_sweep.py::candidate_rates``)."""
 
     names = ("relaxation_time",)
+
+    def forward(self, residence_time: torch.Tensor, distance_neutral: torch.Tensor,
+                distance_relaxed: torch.Tensor) -> torch.Tensor:
+        ratio = torch.where(residence_time < 0, 1.0, torch.clamp(
+            residence_time / self.relaxation_time, max=1.0))
+        return (1.0 - ratio) * distance_neutral + ratio * distance_relaxed
 
 
 TRANSFORM_REGISTRY = {

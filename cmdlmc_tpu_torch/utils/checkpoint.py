@@ -9,10 +9,10 @@ the JAX package wrote therefore loads into the port. Because the kernels
 key their draws by seed, absolute frame and event ordinal, a resumed run
 continues bit for bit where it left off.
 
-``keys`` are the JAX package's scan-engine keys (threefry key data). The
-port's kernels draw from the seed and never read them: a loaded ``keys``
-array is carried through unchanged, and a run the port began writes none
-(the JAX package cannot resume such a checkpoint).
+``keys`` are the scan engine's keys (threefry key data, uint32 [R, 2]),
+the same in both packages (``ops/threefry.py``). The driver writes them on
+every route, so the JAX package resumes any checkpoint the port wrote; the
+kernels draw from the seed and do not read them.
 
 Unlike JAX arrays, the port's tensors are mutable: the driver's block loop
 updates the state in place (the jump matrix is added into where it lies).
@@ -33,6 +33,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from cmdlmc_tpu_torch.ops import threefry
 
 logger = logging.getLogger(__name__)
 
@@ -99,7 +101,7 @@ def checkpoint_arrays(states, keys, next_frame: int,
     out: dict[str, Any] = {}
     _flatten("state.", states, out)
     if keys is not None:
-        out["keys"] = np.asarray(keys)
+        out["keys"] = threefry.key_data(keys)
     out["next_frame"] = np.int64(next_frame)
     out["state_class"] = np.bytes_(type(states).__name__.encode())
     if meta:
@@ -120,7 +122,7 @@ def write_arrays(path: str, arrays: dict, compress: bool = False):
 
 def save_checkpoint(path: str, states, keys, next_frame: int,
                     meta: dict | None = None, compress: bool = False):
-    """Persist replica states (+ the JAX package's keys, if any) and the
+    """Persist replica states (+ the scan engine's keys, if any) and the
     stream position to ``path`` (.npz), synchronously. Uncompressed by
     default: the state is nearly incompressible floats."""
     write_arrays(path, checkpoint_arrays(states, keys, next_frame, meta), compress)
@@ -214,8 +216,8 @@ class CheckpointWriter:
 
 def load_checkpoint(path: str, device="cpu", k: int | None = None):
     """Returns (states, keys, next_frame, meta), the states' tensors on
-    ``device`` and ``keys`` the stored key data as a numpy array (None when
-    the port began the run). A neighbor carry that the JAX package wrote
+    ``device`` and ``keys`` the stored key data as a uint32 numpy array
+    (None where the file holds none). A neighbor carry that the JAX package wrote
     holds its lists as float ids padded to whole tiles; it comes over with
     its first min(``k``, N - 1) rows, as ``convert.neighbor_carry_from_fields``
     takes them, so it needs the top-K model's ``k``."""

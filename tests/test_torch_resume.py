@@ -24,6 +24,7 @@ from cmdlmc_tpu.config.schema import load_config as j_load_config
 from cmdlmc_tpu_torch import driver as tdriver
 from cmdlmc_tpu_torch.config.schema import load_config as t_load_config
 from cmdlmc_tpu_torch.io.xyz import write_xyz_frame
+from cmdlmc_tpu_torch.ops import threefry
 
 torch.set_num_threads(1)
 
@@ -113,7 +114,10 @@ def test_resume_is_bit_exact(traj, straight, tmp_path, name, interval):
     assert len(part2) == 4
     _same_state(resumed, final)
     with np.load(ckpt) as f:
-        assert int(f["next_frame"]) == 80 and "keys" not in f.files
+        # the scan engine's keys of seed 1 and 16 replicas, on every route
+        assert int(f["next_frame"]) == 80
+        np.testing.assert_array_equal(f["keys"], threefry.key_data(threefry.split(
+            threefry.fold_in(threefry.key(1), 1), 16)))
 
 
 def test_rerun_of_a_finished_run_does_nothing(traj, tmp_path):

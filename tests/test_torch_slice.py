@@ -386,15 +386,13 @@ def test_load_config_matches_jax(path):
 def test_unsupported_features_raise(runs):
     jsim = runs[0]
     cfg = t_load_config(io.StringIO(INI.format(traj=jsim.cfg.trajectory.filename)))
-    for section, field, value in (
-        ("engine", "backend", "scan"),
-        ("topology", "type_", "KMCWater"),
-    ):
-        bad = dataclasses.replace(
-            cfg, **{section: dataclasses.replace(getattr(cfg, section),
-                                                 **{field: value})})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdriver.Simulation(bad, device="cpu")
+    bad = dataclasses.replace(cfg, topology=dataclasses.replace(cfg.topology,
+                                                                type_="KMCWater"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdriver.Simulation(bad, device="cpu")
+    # backend = scan configures and takes the scan engine's route
+    scan = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, backend="scan"))
+    assert tdriver.Simulation(scan, device="cpu").use_scan
     # AngleTopology on a supercell would group differently from the JAX driver
     angle_box = dataclasses.replace(
         cfg, topology=dataclasses.replace(cfg.topology, type_="AngleTopology",

@@ -9,9 +9,9 @@
   package's ``init_water_states`` prints, at each print frame, replica 0's
   site after that frame, and the block-end jumps and correction, as the JAX
   CLI's scan branch does (rows equal but the fps column).
-* The two keyword loaders, the device and configuration refusals, the
-  acceptance of more sites than an earlier K7 could take, and no jax
-  import.
+* The two keyword loaders, the device refusal, the models the water kernel
+  refuses running on the scan engine, the acceptance of more sites than an
+  earlier K7 could take, and no jax import.
 
 The cases come from ``test_torch_water.py``.
 """
@@ -212,12 +212,15 @@ def test_cli_refusals(tmp_path, capsys):
     }
     x = np.linspace(1.0, 4.0, ws.MAX_INTERP_POINTS + 1)
     np.savetxt(tmp_path / "big.txt", np.stack([x, x], axis=1))
+    # the models the water kernel refuses run on the scan engine
     for name, text in bad.items():
         path = tmp_path / f"{name}.cfg"
         path.write_text(text)
         settings = tkw.load_configfile(str(path), config_name="KMCWater")
-        with pytest.raises(NotImplementedError):
-            tcli.kmc_water_main(settings, out=io.StringIO(), device="cpu")
+        assert twm.water_unsupported_reason(tcli.build_model(settings, "cpu"))
+        out = io.StringIO()
+        tcli.kmc_water_main(settings, out=out, device="cpu")
+        assert len(_rows(out.getvalue())) == 1, name
     assert not twm.water_fused_supported(tcli.build_model(
         tkw.load_configfile(str(tmp_path / "n_atoms.cfg"), config_name="KMCWater"), "cpu"))
 
