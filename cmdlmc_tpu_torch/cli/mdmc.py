@@ -7,7 +7,8 @@ run on one device (port of ``cmdlmc_tpu/cli/mdmc.py``).
 
 ``--legacy`` reads a first-generation cMDLMC keyword file (its trajectory
 is converted to an HDF5 sibling once, which needs h5py); ``--profile``
-writes a torch.profiler trace of the run (Chrome / Perfetto JSON) into DIR.
+writes a torch.profiler trace of the run (Chrome / Perfetto JSON) into DIR,
+every thread's spans in it (``utils/trace.py`` lists them).
 """
 
 from __future__ import annotations
@@ -47,12 +48,14 @@ def main(argv=None):
 
     if args.profile:
         import torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
         activities = [ProfilerActivity.CPU]
         if args.device == "cuda" and torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
-        profile_cm = profile(activities=activities)
+        # every thread's spans: the prefetch thread's kmc.stream.parse/h2d too
+        profile_cm = profile(activities=activities, experimental_config=
+                             _ExperimentalConfig(profile_all_threads=True))
     else:
         profile_cm = contextlib.nullcontext()
 

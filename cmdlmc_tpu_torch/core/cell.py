@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from cmdlmc_tpu_torch.utils import trace
+
 # Offsets of the 27 periodic images around the home cell (triclinic search).
 _IMAGE_SHIFTS = np.array(
     [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
@@ -171,8 +173,9 @@ def extended_positions(base_cell_vectors, positions: torch.Tensor,
     ``base_cell_vectors`` holds the unextended cell vectors as rows (3 box
     lengths for a cubic cell)."""
     base = np.asarray(base_cell_vectors, np.float32)
-    v = torch.as_tensor(np.diag(base) if base.size == 3 else base.reshape(3, 3),
-                        dtype=positions.dtype, device=positions.device)
+    v = trace.to_device(torch.as_tensor(np.diag(base) if base.size == 3
+                                        else base.reshape(3, 3), dtype=positions.dtype),
+                        positions.device, "supercell_h2d")
     mx, my, mz = (int(m) for m in multiplier)
     shifts = torch.stack([i * v[0] + j * v[1] + k * v[2] for i in range(mx)
                           for j in range(my) for k in range(mz)])  # [M, 3]

@@ -23,6 +23,8 @@ import functools
 import numpy as np
 import torch
 
+from cmdlmc_tpu_torch.utils import trace
+
 
 def f32(value: float) -> float:
     """The float32 value of ``value``, as a host scalar."""
@@ -32,4 +34,5 @@ def f32(value: float) -> float:
 @functools.lru_cache(maxsize=64)
 def divisor(value: float, device) -> torch.Tensor:
     """The float32 value of ``value`` on ``device``, to divide by (cached)."""
-    return torch.tensor(np.float32(value), dtype=torch.float32, device=device)
+    return trace.to_device(torch.tensor(np.float32(value), dtype=torch.float32),
+                           device, "constant")

@@ -65,6 +65,7 @@ from cmdlmc_tpu_torch.ops import threefry
 from cmdlmc_tpu_torch.rates import laws as rate_laws
 from cmdlmc_tpu_torch.topo import models as topo_models
 from cmdlmc_tpu_torch.topo import transforms as topo_transforms
+from cmdlmc_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -212,8 +213,8 @@ def jumpstat_lines(states, hist_range, bins, dt):
     """The distance-resolved jump statistics accumulated by the kernels'
     histograms, as the JAX package's ``driver.jumpstat_lines`` formats them
     (shared by the ``jumpstat`` CLI and ``[Output] jumpstat_bins``)."""
-    jumps = states.replicas.jump_hist.cpu().numpy().sum(axis=0)
-    opp = states.replicas.opportunity_hist.cpu().numpy().sum(axis=0)
+    jumps = trace.to_host(states.replicas.jump_hist, "final").numpy().sum(axis=0)
+    opp = trace.to_host(states.replicas.opportunity_hist, "final").numpy().sum(axis=0)
     edges = np.linspace(hist_range[0], hist_range[1], bins + 1)
     centers = 0.5 * (edges[:-1] + edges[1:])
     lines = [
@@ -324,16 +325,13 @@ class Simulation:
         self.hist_range = tuple(cfg.output.jumpstat_range)
         self.track_jump_matrix = bool(cfg.engine.jumpmatrix_filename)
         self.final_states = None
+        self.final_frame = 0  # the frame after the last one simulated
         self._max_truncation = 0.0
         self._trunc = None  # device scalar: max truncated fraction
-        # (frames, stacked device stats) awaiting a host fetch: each block's
-        # rows are fetched one block late so the copy rides under the next
-        # block's kernels
+        # (print frames, stacked device stats or None, the block's frames)
+        # awaiting a host fetch: each block's rows are fetched one block late
+        # so the copy rides under the next block's kernels
         self._fused_stats_pending = None
-        # steady-state perf bookkeeping (the first block carries the kernel
-        # build; exclude it from the sustained rate)
-        self._steady_t0 = None
-        self._steady_frames0 = 0
 
     def _set_model(self, model):
         """Take the model and its route, the JAX driver's rule: ``backend =
@@ -380,19 +378,27 @@ class Simulation:
         mult = tuple(int(m) for m in cfg.atombox.box_multiplier)
 
         def device_array(x):
-            t = torch.from_numpy(
-                np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+            # a copy from pageable memory waits for the stream: the reader
+            # stalls behind the kernels queued on the main thread
+            t = trace.to_device(torch.from_numpy(
+                np.ascontiguousarray(x, dtype=np.float32)), self.device, "stream_h2d")
             if mult != (1, 1, 1):
                 t = extended_positions(cfg.atombox.periodic_boundaries, t, mult)
             return t
 
         def staged():
-            for block in gen:
+            while True:
+                with trace.span("kmc.stream.parse"):
+                    block = next(gen, None)
+                if block is None:
+                    return
                 if block.start + block.n_frames <= skip_until:
                     yield block, None, None
                     continue
-                extras = device_array(block.extras) if self.angle else None
-                yield block, device_array(block.donors), extras
+                with trace.span("kmc.stream.h2d"):
+                    extras = device_array(block.extras) if self.angle else None
+                    donors = device_array(block.donors)
+                yield block, donors, extras
 
         return prefetch(staged())
 
@@ -440,67 +446,92 @@ class Simulation:
         resume_frame = blocks_done = last_frame_done = 0
         last_ckpt_frame = -1
         if ckpt_path and os.path.exists(ckpt_path):
-            states, keys_host, resume_frame = self._load_checkpoint(ckpt_path)
+            with trace.sync("ckpt_load"):
+                states, keys_host, resume_frame = self._load_checkpoint(ckpt_path)
             # a re-run of a finished run simulates nothing again
             last_frame_done = resume_frame
-        for block, donors, extras in self._blocks(skip_until=resume_frame):
-            block_end = block.start + block.n_frames
-            if block_end <= resume_frame:
-                continue  # simulated before the checkpoint
-            if block.start < resume_frame:
-                raise ValueError(
-                    f"Checkpoint frame {resume_frame} falls inside the block "
-                    f"[{block.start}, {block_end}) — the checkpoint was "
-                    "written with a different [Engine] block_size. Resume "
-                    "with the original block_size (checkpoints record it in "
-                    "their meta) or delete the checkpoint.")
-            if self.model is None:
-                self._set_model(build_model(cfg, self.cell, self.law,
-                                            donors[0], extras[0]))
-            if states is None:
-                states = self._initial_states(donors)
-            if keys_host is None:
-                # the scan engine's keys, as the JAX driver makes them (a
-                # checkpoint's when it carries them); every save writes them
-                keys_host = threefry.key_data(threefry.split(threefry.fold_in(
-                    threefry.key(cfg.engine.seed), 1), states.replicas.occ.shape[0]))
-            blocks_done += 1
-            will_ckpt = (ckpt_path and cfg.engine.checkpoint_interval > 0
-                         and blocks_done % cfg.engine.checkpoint_interval == 0)
-            if self.use_scan:
-                if keys is None:
-                    keys = torch.from_numpy(keys_host.astype(np.int64)).to(self.device)
-                states = yield from self._scan_block(states, keys, block, donors,
-                                                     extras, xyz)
-            else:
-                states = yield from self._fused_block(states, block, donors, extras,
-                                                      xyz, will_ckpt)
-            if self._steady_t0 is None:
-                self._steady_t0 = time.time()
-                self._steady_frames0 = block_end
-            if will_ckpt:
-                ckpt_writer.save(states, keys_host, block_end, meta=self._ckpt_meta())
-                last_ckpt_frame = block_end
-            last_frame_done = block_end
+        blocks = self._blocks(skip_until=resume_frame)
+        try:
+            while True:
+                # a block's span opens before its positions are asked for
+                # (the wait for the reader is the block's) and closes before
+                # its rows go to the reader; the last finds the stream's end
+                with trace.span("kmc.block"):
+                    item = next(blocks, None)
+                    if item is None:
+                        break
+                    block, donors, extras = item
+                    block_end = block.start + block.n_frames
+                    if block_end <= resume_frame:
+                        continue  # simulated before the checkpoint
+                    if block.start < resume_frame:
+                        raise ValueError(
+                            f"Checkpoint frame {resume_frame} falls inside the block "
+                            f"[{block.start}, {block_end}) — the checkpoint was "
+                            "written with a different [Engine] block_size. Resume "
+                            "with the original block_size (checkpoints record it "
+                            "in their meta) or delete the checkpoint.")
+                    if self.model is None:
+                        with trace.sync("model"):  # AngleTopology groups on the host
+                            self._set_model(build_model(cfg, self.cell, self.law,
+                                                        donors[0], extras[0]))
+                    if states is None:
+                        with trace.sync("init"):  # the seeded start drawn on the host
+                            states = self._initial_states(donors)
+                    if keys_host is None:
+                        # the scan engine's keys, as the JAX driver makes them
+                        # (a checkpoint's when it carries them); every save
+                        # writes them
+                        keys_host = threefry.key_data(threefry.split(threefry.fold_in(
+                            threefry.key(cfg.engine.seed), 1),
+                            states.replicas.occ.shape[0]))
+                    blocks_done += 1
+                    will_ckpt = (ckpt_path and cfg.engine.checkpoint_interval > 0
+                                 and blocks_done % cfg.engine.checkpoint_interval == 0)
+                    if self.use_scan:
+                        if keys is None:
+                            keys = trace.to_device(
+                                torch.from_numpy(keys_host.astype(np.int64)),
+                                self.device, "scan_keys")
+                        states, rows = self._scan_block(states, keys, block, donors,
+                                                        extras, xyz)
+                    else:
+                        states, rows = self._fused_block(states, block, donors, extras,
+                                                         xyz, will_ckpt)
+                for part in rows:
+                    yield from part
+                if will_ckpt:
+                    with trace.span("kmc.driver.ckpt"):
+                        ckpt_writer.save(states, keys_host, block_end,
+                                         meta=self._ckpt_meta())
+                    last_ckpt_frame = block_end
+                last_frame_done = block_end
+        finally:
+            blocks.close()  # ends the prefetch thread, also where the reader stops early
         if self._fused_stats_pending is not None:  # flush the deferred block
             yield from self._emit_fused(self._fused_stats_pending)
             self._fused_stats_pending = None
         self.final_states = states
+        self.final_frame = last_frame_done
         if (ckpt_path and states is not None and blocks_done > 0
                 and last_frame_done != last_ckpt_frame):
             # the last block's save already holds this frame
-            ckpt_writer.save(states, keys_host, last_frame_done, meta=self._ckpt_meta())
+            with trace.span("kmc.driver.ckpt"):
+                ckpt_writer.save(states, keys_host, last_frame_done,
+                                 meta=self._ckpt_meta())
         if ckpt_writer is not None:
             ckpt_writer.close()  # the run is complete only once the file is
 
     def _fused_block(self, states, block, donors, extras, xyz: bool, will_ckpt):
         """One block through the kernels, cut into spans that end where a
         row is printed or the observables reset (the reference's per-frame
-        cadence): yields its print frames (xyz mode) or the previous block's
+        cadence). Returns the states and what the block emits, as a list of
+        iterables: its print frames (xyz mode) or the previous block's
         observable records (fetched after this block's launches, so the copy
-        rides under its kernels), and returns the states."""
+        rides under its kernels; with ``will_ckpt`` this block's too)."""
         cfg = self.cfg
         pending = []
+        xyz_frames = []
         donors_np = None
         for sub_start, sub_end in self._fused_spans(block.start, block.start + block.n_frames):
             lo, hi = sub_start - block.start, sub_end - block.start
@@ -526,27 +557,32 @@ class Simulation:
             if (xyz and f % cfg.output.print_frequency == 0
                     and f >= cfg.engine.equilibration_sweeps):
                 if donors_np is None:
-                    donors_np = donors.cpu().numpy()
-                sites0 = states.replicas.site_of_proton[0].cpu().numpy()
-                yield self._format_xyz(donors_np[f - block.start], sites0, f)
-        if not xyz:
-            prev_batch = self._fused_stats_pending
-            self._fused_stats_pending = (
-                ([f for f, _ in pending], torch.stack([s for _, s in pending]))
-                if pending else None
-            )
-            if prev_batch is not None:
-                yield from self._emit_fused(prev_batch)
-            if will_ckpt and self._fused_stats_pending is not None:
-                # a checkpoint never covers frames whose rows were not
-                # printed (a crash after the save would lose them)
-                yield from self._emit_fused(self._fused_stats_pending)
-                self._fused_stats_pending = None
-        return states
+                    donors_np = trace.to_host(donors, "xyz").numpy()
+                sites0 = trace.to_host(states.replicas.site_of_proton[0], "xyz").numpy()
+                xyz_frames.append(self._format_xyz(donors_np[f - block.start], sites0, f))
+        if xyz:
+            trace.emitted(block.n_frames)
+            return states, [xyz_frames]
+        emit = []
+        prev_batch = self._fused_stats_pending
+        self._fused_stats_pending = (
+            [f for f, _ in pending],
+            torch.stack([s for _, s in pending]) if pending else None,
+            block.n_frames,
+        )
+        if prev_batch is not None:
+            emit.append(self._emit_fused(prev_batch))
+        if will_ckpt:
+            # a checkpoint never covers frames whose rows were not printed
+            # (a crash after the save would lose them)
+            emit.append(self._emit_fused(self._fused_stats_pending))
+            self._fused_stats_pending = None
+        return states, emit
 
     def _scan_block(self, states, keys, block, donors, extras, xyz: bool):
-        """One block through the scan engine: yields its print frames (xyz
-        mode) or its observable records, and returns the states."""
+        """One block through the scan engine. Returns the states and what the
+        block emits, as a list of iterables: its print frames (xyz mode) or
+        its observable records."""
         cfg = self.cfg
         frames = eng.block_frames(donors, block.start, self.dt, extras)
         kw = dict(dt=self.dt, max_events=cfg.engine.max_events_per_frame,
@@ -556,27 +592,31 @@ class Simulation:
                   equilibration=cfg.engine.equilibration_sweeps)
         eq, pf = cfg.engine.equilibration_sweeps, cfg.output.print_frequency
         if xyz:
-            states, rows, sites = eng.run_block_with_sites(
-                self.model, self.cell, states, keys, frames, **kw)
+            with trace.span("kmc.run_block"):
+                states, rows, sites = eng.run_block_with_sites(
+                    self.model, self.cell, states, keys, frames, **kw)
             self._fold_truncation(rows.truncated_mean.max())
-            donors_np, sites_np = donors.cpu().numpy(), sites.cpu().numpy()
-            for i, f in enumerate(frames.index.tolist()):
-                if f >= eq and f % pf == 0:
-                    yield self._format_xyz(donors_np[i], sites_np[i], f)
-            return states
-        states, rows = eng.run_block(self.model, self.cell, states, keys, frames,
-                                     variance_mode=cfg.output.variance_mode, **kw)
-        rows = rows.cpu()
+            donors_np = trace.to_host(donors, "xyz").numpy()
+            sites_np = trace.to_host(sites, "xyz").numpy()
+            trace.emitted(block.n_frames)
+            return states, [[self._format_xyz(donors_np[i], sites_np[i], f)
+                             for i, f in enumerate(frames.index.tolist())
+                             if f >= eq and f % pf == 0]]
+        with trace.span("kmc.run_block"):
+            states, rows = eng.run_block(self.model, self.cell, states, keys, frames,
+                                         variance_mode=cfg.output.variance_mode, **kw)
+        with trace.sync("scan_rows"):
+            rows = rows.cpu()
+        trace.emitted(block.n_frames)
         self._fold_truncation(rows.truncated_mean.max())
-        for i, f in enumerate(rows.frame.tolist()):
-            if f >= eq and f % pf == 0:
-                yield ObservableRecord(
-                    frame=f, time=float(rows.time[i]), msd=rows.msd_mean[i].numpy(),
-                    msd_var=rows.msd_var[i].numpy(),
-                    autocorr=float(rows.autocorr_mean[i]),
-                    autocorr_var=float(rows.autocorr_var[i]),
-                    jumps=float(rows.jumps_mean[i]), msd4=float(rows.msd4_mean[i]))
-        return states
+        return states, [[
+            ObservableRecord(
+                frame=f, time=float(rows.time[i]), msd=rows.msd_mean[i].numpy(),
+                msd_var=rows.msd_var[i].numpy(),
+                autocorr=float(rows.autocorr_mean[i]),
+                autocorr_var=float(rows.autocorr_var[i]),
+                jumps=float(rows.jumps_mean[i]), msd4=float(rows.msd4_mean[i]))
+            for i, f in enumerate(rows.frame.tolist()) if f >= eq and f % pf == 0]]
 
     def _fold_truncation(self, frac: torch.Tensor):
         """Keep the largest truncated fraction on the device."""
@@ -619,7 +659,7 @@ class Simulation:
     def _truncation_fraction(self) -> float:
         """Fold the on-device truncation accumulator into ``_max_truncation``."""
         if self._trunc is not None:
-            frac = float(self._trunc)
+            frac = float(trace.to_host(self._trunc, "final"))
             self._trunc = None
             self._max_truncation = max(self._max_truncation, frac)
         return self._max_truncation
@@ -661,22 +701,24 @@ class Simulation:
         f = boundary - 1
         rf = cfg.output.reset_frequency
         eq = cfg.engine.equilibration_sweeps
-        if (rf > 0 and f % rf == 0 and f > 0) or (eq > 0 and f == eq):
-            states = dataclasses.replace(
-                states,
-                replicas=eng._reset_states(states.replicas, states.site_disp),
-            )
-        pending = []
-        if snapshot and f % cfg.output.print_frequency == 0 and f >= eq:
-            pending.append((f, _fused_obs_stats(states, cfg.output.variance_mode)))
+        with trace.span("kmc.driver.post"):
+            if (rf > 0 and f % rf == 0 and f > 0) or (eq > 0 and f == eq):
+                states = dataclasses.replace(
+                    states,
+                    replicas=eng._reset_states(states.replicas, states.site_disp),
+                )
+            pending = []
+            if snapshot and f % cfg.output.print_frequency == 0 and f >= eq:
+                pending.append((f, _fused_obs_stats(states, cfg.output.variance_mode)))
         return states, pending
 
     def _emit_fused(self, batch):
-        """Materialize one block's deferred rows with one device->host copy."""
-        frames_, stats = batch
-        arr = stats.cpu().numpy()  # [n_prints, 10]
-        for f, row in zip(frames_, arr):
-            yield ObservableRecord(
+        """Materialize one block's deferred rows with one device->host copy
+        (none where the block printed no row) and move the block clock."""
+        frames_, stats, n_frames = batch
+        with trace.span("kmc.driver.emit"):
+            arr = trace.to_host(stats, "emit").numpy() if stats is not None else ()
+            records = [ObservableRecord(
                 frame=f,
                 time=f * self.dt,
                 msd=row[0:3],
@@ -685,7 +727,9 @@ class Simulation:
                 autocorr_var=float(row[7]),
                 jumps=float(row[8]),
                 msd4=float(row[9]),
-            )
+            ) for f, row in zip(frames_, arr)]
+            trace.emitted(n_frames)
+        yield from records
 
     def _format_xyz(self, pos: np.ndarray, proton_sites: np.ndarray,
                     frame_no: int) -> str:
@@ -726,7 +770,8 @@ class Simulation:
             print(line, file=out)
         for line in config_echo(cfg):
             print(line, file=out)
-        run_start = time.time()
+        before = trace.snapshot()
+        run_start = time.perf_counter()
         frames_done = 0
         if cfg.output.type_ == "XYZOutput":
             for row in self.xyz_rows():
@@ -745,7 +790,10 @@ class Simulation:
         if cfg.output.variance:
             header += ["MSD_var_x", "MSD_var_y", "MSD_var_z", "Autocorr_var"]
         print("# " + " ".join(f"{h:>12}" for h in header), file=out)
+        first = None  # the block clock at the first block's rows
         for r in self.observable_rows():
+            if first is None:
+                first = trace.block_clock()
             frames_done = r.frame + 1
             cols = [
                 f"{r.frame:12d}",
@@ -766,26 +814,30 @@ class Simulation:
                     f"{r.autocorr_var:8.2f}",
                 ]
             print(" ".join(cols), file=out, flush=True)
+        moved = trace.since(before)
+        last = trace.block_clock()
         if self.hist_bins > 0 and self.final_states is not None:
             for line in jumpstat_lines(self.final_states, self.hist_range,
                                        self.hist_bins, self.dt):
                 print(line, file=out)
         if self.track_jump_matrix and self.final_states is not None:
             jumpmatrix = self.final_states.replicas.jump_matrix.sum(dim=0)
-            np.save(cfg.engine.jumpmatrix_filename, jumpmatrix.cpu().numpy())
+            np.save(cfg.engine.jumpmatrix_filename,
+                    trace.to_host(jumpmatrix, "final").numpy())
             print(f"# jump matrix saved to {cfg.engine.jumpmatrix_filename}",
                   file=out)
         if cfg.output.replica_dump and self.final_states is not None:
             rep = self.final_states.replicas
             msd, autocorr = eng.observables_of(rep, self.final_states.site_disp)
-            np.savez_compressed(
-                cfg.output.replica_dump,
-                msd=msd.cpu().numpy(),
-                autocorrelation=autocorr.cpu().numpy(),
-                jumps=rep.jumps.cpu().numpy(),
-                event_count=rep.clock.event_count.cpu().numpy(),
-                site_of_proton=rep.site_of_proton.cpu().numpy(),
-            )
+            with trace.sync("final"):
+                np.savez_compressed(
+                    cfg.output.replica_dump,
+                    msd=msd.cpu().numpy(),
+                    autocorrelation=autocorr.cpu().numpy(),
+                    jumps=rep.jumps.cpu().numpy(),
+                    event_count=rep.clock.event_count.cpu().numpy(),
+                    site_of_proton=rep.site_of_proton.cpu().numpy(),
+                )
             print(f"# per-replica observables saved to {cfg.output.replica_dump}",
                   file=out)
         if self._truncation_fraction() > 0:
@@ -795,24 +847,30 @@ class Simulation:
                 "[Engine] max_events_per_frame",
                 file=out,
             )
-        elapsed = max(time.time() - run_start, 1e-9)
+        elapsed = max(time.perf_counter() - run_start, 1e-9)
         if frames_done and self.final_states is not None:
-            n_sites = self.final_states.replicas.occ.shape[-1]
-            fps = frames_done / elapsed
-            line = (
-                f"# perf: {fps:.1f} frames/s, "
-                f"{fps * cfg.engine.replicas * n_sites:.3e} site-updates/s"
-            )
-            if self._steady_t0 is not None and frames_done > self._steady_frames0:
-                steady_fps = (frames_done - self._steady_frames0) / max(
-                    time.time() - self._steady_t0, 1e-9
-                )
-                line += (
-                    f" (steady-state, excl. first block: {steady_fps:.1f} "
-                    f"frames/s, {steady_fps * cfg.engine.replicas * n_sites:.3e} "
-                    "site-updates/s)"
-                )
-            print(line, file=out)
+            print(self._perf_line(frames_done / elapsed, first, last, moved), file=out)
+
+    def _perf_line(self, fps, first, last, moved) -> str:
+        """The ``# perf:`` line: the rate over the whole run, and from the
+        first block's rows on (the block clock at ``first`` and ``last``;
+        the first block carries the kernels' load and the warm-up); events
+        per replica-frame from the final cumulative event counts; the host
+        syncs per block of the registry's counters ``moved``."""
+        rep = self.final_states.replicas
+        per_frame = self.cfg.engine.replicas * rep.occ.shape[-1]
+        line = f"# perf: {fps:.1f} frames/s, {fps * per_frame:.3e} site-updates/s"
+        if first is not None and last[1] > first[1]:
+            steady = (last[1] - first[1]) / max(last[0] - first[0], 1e-9)
+            line += (f" (from the first block's rows on: {steady:.1f} frames/s, "
+                     f"{steady * per_frame:.3e} site-updates/s)")
+        events = int(trace.to_host(rep.clock.event_count, "final").sum())
+        line += (f", {events / max(rep.occ.shape[0] * self.final_frame, 1):.4f} "
+                 "events/replica-frame")
+        syncs = sum(v for k, v in moved.items() if k.startswith("syncs."))
+        if moved.get("blocks"):
+            line += f", {syncs / moved['blocks']:.2f} host syncs/block"
+        return line
 
 
 def config_fingerprint(cfg: SimulationConfig) -> str:

@@ -42,6 +42,7 @@ from cmdlmc_tpu_torch.rates import laws as rate_laws
 from cmdlmc_tpu_torch.topo.models import (
     AnglePairRates, PairRates, TopKPairRates, TopKRates,
 )
+from cmdlmc_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -189,79 +190,84 @@ def run_block_fused(
     ``donate``s it: then the matrix is added into in place, which a loop
     over blocks wants (a copy of the [R, N, N] matrix per launch would move
     2.7 GB at R=16384, N=144), and ``ens`` must not be used again."""
-    reason = fused_unsupported_reason(model, cell)
-    if reason:
-        raise NotImplementedError(reason)
-    if not donate and ens.replicas.jump_matrix.numel():
-        ens = dataclasses.replace(ens, replicas=dataclasses.replace(
-            ens.replicas, jump_matrix=ens.replicas.jump_matrix.clone()))
-    if isinstance(model, TopKRates):
-        return _run_block_topk(
-            model, cell, ens, frames_positions, frame0, dt=dt,
-            max_events=max_events, seed=seed, tile=tile, tile_offset=tile_offset,
-            return_truncation=return_truncation, nbr_reuse=nbr_reuse,
-            hist_range=hist_range)
-    angle = isinstance(model, AnglePairRates)
-    if angle and extras_positions is None:
-        raise ValueError("AngleTopology fused run needs extra-atom positions")
-    rep = ens.replicas
-    R, N = rep.occ.shape
-    if tile is None:
-        tile = pick_tile(R, n_sites=N)
-    positions = frames_positions.to(torch.float32)
-    extras = extras_positions.to(torch.float32) if angle else None
-    if streamed is None:
-        streamed = not inkernel_route(model, cell, R, N, tile, stale_rates)
-    elif not streamed:
-        reason = inkernel_reason(model, cell, N, stale_rates)
+    with trace.span("kmc.run_block"):
+        reason = fused_unsupported_reason(model, cell)
         if reason:
-            raise ValueError(reason)
-    stats = kss.stats_kwargs(rep, hist_range)
-    if not streamed:
-        kind = ks.law_kind(model.law)
-        out = ks.kmc_sweep(
-            positions, ens.prev_pos, ens.site_disp,
-            rep.occ, rep.proton_of_site.to(torch.float32), rep.site_of_proton,
-            rep.t_last_jump, rep.disp_base, rep.clock.u_remaining,
-            rep.clock.event_count, ks.law_params_array(model.law), int(frame0),
-            model.box, int(tile_offset),
-            model.grouped_positions(extras) if kind == ks.KIND_FERMI_ANGLE else None,
-            kind=kind, tile=tile, max_events=max_events, dt=float(dt),
-            seed=int(seed), cutbuf=model.cutbuf, **stats,
-        )
-        return _finish(ens, rep, out, return_truncation)
-    B = positions.shape[0]
-    chunk = _streamed_frame_chunk(B, N, stats["nbins"])
-    if chunk < B:
-        trunc_total = None
-        for s in range(0, B, chunk):
-            e = min(s + chunk, B)
-            ens, trunc = run_block_fused(
-                model, cell, ens, positions[s:e], frame0 + s, dt=dt,
-                max_events=max_events, seed=seed, tile=tile,
-                tile_offset=tile_offset, return_truncation=True,
-                stale_rates=stale_rates,
-                extras_positions=extras[s:e] if angle else None, streamed=True,
-                hist_range=hist_range, donate=True,
+            raise NotImplementedError(reason)
+        if not donate and ens.replicas.jump_matrix.numel():
+            ens = dataclasses.replace(ens, replicas=dataclasses.replace(
+                ens.replicas, jump_matrix=ens.replicas.jump_matrix.clone()))
+        if isinstance(model, TopKRates):
+            return _run_block_topk(
+                model, cell, ens, frames_positions, frame0, dt=dt,
+                max_events=max_events, seed=seed, tile=tile, tile_offset=tile_offset,
+                return_truncation=return_truncation, nbr_reuse=nbr_reuse,
+                hist_range=hist_range)
+        angle = isinstance(model, AnglePairRates)
+        if angle and extras_positions is None:
+            raise ValueError("AngleTopology fused run needs extra-atom positions")
+        rep = ens.replicas
+        R, N = rep.occ.shape
+        if tile is None:
+            tile = pick_tile(R, n_sites=N)
+        positions = frames_positions.to(torch.float32)
+        extras = extras_positions.to(torch.float32) if angle else None
+        if streamed is None:
+            streamed = not inkernel_route(model, cell, R, N, tile, stale_rates)
+        elif not streamed:
+            reason = inkernel_reason(model, cell, N, stale_rates)
+            if reason:
+                raise ValueError(reason)
+        stats = kss.stats_kwargs(rep, hist_range)
+        if not streamed:
+            kind = ks.law_kind(model.law)
+            with trace.span("kmc.loop"):
+                out = ks.kmc_sweep(
+                    positions, ens.prev_pos, ens.site_disp,
+                    rep.occ, rep.proton_of_site.to(torch.float32), rep.site_of_proton,
+                    rep.t_last_jump, rep.disp_base, rep.clock.u_remaining,
+                    rep.clock.event_count, ks.law_params_array(model.law), int(frame0),
+                    model.box, int(tile_offset),
+                    model.grouped_positions(extras) if kind == ks.KIND_FERMI_ANGLE
+                    else None,
+                    kind=kind, tile=tile, max_events=max_events, dt=float(dt),
+                    seed=int(seed), cutbuf=model.cutbuf, **stats,
+                )
+            return _finish(ens, rep, out, return_truncation)
+        B = positions.shape[0]
+        chunk = _streamed_frame_chunk(B, N, stats["nbins"])
+        if chunk < B:
+            trunc_total = None
+            for s in range(0, B, chunk):
+                e = min(s + chunk, B)
+                ens, trunc = run_block_fused(
+                    model, cell, ens, positions[s:e], frame0 + s, dt=dt,
+                    max_events=max_events, seed=seed, tile=tile,
+                    tile_offset=tile_offset, return_truncation=True,
+                    stale_rates=stale_rates,
+                    extras_positions=extras[s:e] if angle else None, streamed=True,
+                    hist_range=hist_range, donate=True,
+                )
+                trunc_total = trunc if trunc_total is None else trunc_total + trunc
+            return (ens, trunc_total) if return_truncation else ens
+        with trace.span("kmc.stage1"):
+            if stats["nbins"]:
+                w_block, dist_block = kss.dense_tables(model, positions, extras,
+                                                       nbins=stats["nbins"])
+            else:
+                w_block, dist_block = kss.dense_tables(model, positions, extras), None
+        with trace.span("kmc.loop"):
+            out = kss.kmc_sweep_streamed(
+                w_block, positions, ens.prev_pos, ens.site_disp,
+                rep.occ, rep.proton_of_site.to(torch.float32), rep.site_of_proton,
+                rep.t_last_jump, rep.disp_base, rep.clock.u_remaining,
+                rep.clock.event_count, int(frame0), model.box, int(tile_offset),
+                tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
+                stale=stale_rates,
+                geometry=None if cell.orthorhombic else model.geometry,
+                dist_block=dist_block, **stats,
             )
-            trunc_total = trunc if trunc_total is None else trunc_total + trunc
-        return (ens, trunc_total) if return_truncation else ens
-    if stats["nbins"]:
-        w_block, dist_block = kss.dense_tables(model, positions, extras,
-                                               nbins=stats["nbins"])
-    else:
-        w_block, dist_block = kss.dense_tables(model, positions, extras), None
-    out = kss.kmc_sweep_streamed(
-        w_block, positions, ens.prev_pos, ens.site_disp,
-        rep.occ, rep.proton_of_site.to(torch.float32), rep.site_of_proton,
-        rep.t_last_jump, rep.disp_base, rep.clock.u_remaining,
-        rep.clock.event_count, int(frame0), model.box, int(tile_offset),
-        tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
-        stale=stale_rates,
-        geometry=None if cell.orthorhombic else model.geometry,
-        dist_block=dist_block, **stats,
-    )
-    return _finish(ens, rep, out, return_truncation)
+        return _finish(ens, rep, out, return_truncation)
 
 
 def _run_block_topk(model, cell, ens, frames_positions, frame0, *, dt,

@@ -18,6 +18,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from cmdlmc_tpu_torch.utils import trace
+
 
 @dataclasses.dataclass
 class FrameBlock:
@@ -109,25 +111,46 @@ _SENTINEL = object()
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     """Run ``iterator`` on a daemon thread, buffering ``depth`` items — classic
-    double buffering so host parsing overlaps device compute."""
+    double buffering so host parsing overlaps device compute. The main
+    thread's wait for an item is the span ``kmc.stream.wait``. Closing the
+    returned generator (or its end) stops the thread cleanly: a stop flag
+    ends its loop after the item in hand, the queue is drained so its
+    ``put`` returns, ``iterator`` is closed on the thread, and the thread is
+    joined, so no parse runs on after the consumer is gone."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     error: list[BaseException] = []
+    stop = threading.Event()
 
     def worker():
         try:
             for item in iterator:
                 q.put(item)
+                if stop.is_set():
+                    break
         except BaseException as exc:  # propagate into the consumer
             error.append(exc)
         finally:
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
             q.put(_SENTINEL)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is _SENTINEL:
-            if error:
-                raise error[0]
-            return
-        yield item
+    try:
+        while True:
+            with trace.span("kmc.stream.wait"):
+                item = q.get()
+            if item is _SENTINEL:
+                if error:
+                    raise error[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        while t.is_alive():
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        t.join()

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from cmdlmc_tpu_torch.core.cell import sqrt32
 from cmdlmc_tpu_torch.ops import build, rng
+from cmdlmc_tpu_torch.utils import trace
 
 # Replicas (warps) per thread block of K1 (csrc/kmc_sweep_streamed.cu::
 # K1_WARPS): the launch shape, independent of the logical RNG tile.
@@ -291,9 +292,8 @@ def list_scratch(n_sites: int, blocks: int, list_budget: int,
     if slice_ <= list_budget:
         return None, 0
     if blocks * slice_ > LIST_SCRATCH_BUDGET:
-        if caps.is_cuda:
-            torch.cuda.current_stream(caps.device).synchronize()
-        slice_ = list_bytes(n_sites, *caps.tolist(), stats)
+        with trace.sync("list_caps"):
+            slice_ = list_bytes(n_sites, *caps.tolist(), stats)
         if slice_ <= list_budget:
             return None, 0
     return (torch.empty(blocks * slice_, dtype=torch.uint8, device=caps.device),

@@ -45,6 +45,7 @@ import torch
 
 from cmdlmc_tpu_torch.core.cell import sqrt32
 from cmdlmc_tpu_torch.ops import build
+from cmdlmc_tpu_torch.utils import trace
 from cmdlmc_tpu_torch.ops.knn_tables import (
     BIG, BIN_RANGE, CELL_MARGIN, MAX_K, PLAIN_CHUNK_BYTES, cell_dims,
 )
@@ -378,7 +379,8 @@ def knn_sparse_tables(positions: torch.Tensor, box, cutbuf: float, k: int,
         if B == 0:
             return (torch.empty((0, k, N), dtype=torch.float32, device=positions.device),
                     torch.empty((0, k, N), dtype=torch.int32, device=positions.device))
-        plan = device_plan(positions, box, cutbuf)
+        with trace.span("kmc.stage1.plan"):
+            plan = device_plan(positions, box, cutbuf)
     if len(plan.perm) != N:
         raise ValueError(f"knn_sparse_tables: the plan is for {len(plan.perm)} sites, "
                          f"the positions hold {N}")

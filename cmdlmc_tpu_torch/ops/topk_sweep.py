@@ -47,6 +47,7 @@ from cmdlmc_tpu_torch.ops.knn_tables import (
     BIG, MAX_K, PLAIN_CHUNK_BYTES, knn_block_tables,
 )
 from cmdlmc_tpu_torch.topo.models import Frame, HydroniumRates, TopKRates
+from cmdlmc_tpu_torch.utils import trace
 
 
 def topk_unsupported_reason(model) -> str | None:
@@ -87,10 +88,11 @@ def topk_tables(model, positions_block: torch.Tensor, precompute_law: bool):
     B, N, _ = pos.shape
     k = min(model.k, N - 1)
     if model.cell.orthorhombic:
-        if knn_sparse.sparse_route(N, model.box, model.cutbuf):
-            topd, topi = knn_sparse.knn_sparse_tables(pos, model.box, model.cutbuf, k)
-        else:
-            topd, topi = knn_block_tables(pos, model.box, model.cutbuf, k)
+        with trace.span("kmc.stage1.knn"):
+            if knn_sparse.sparse_route(N, model.box, model.cutbuf):
+                topd, topi = knn_sparse.knn_sparse_tables(pos, model.box, model.cutbuf, k)
+            else:
+                topd, topi = knn_block_tables(pos, model.box, model.cutbuf, k)
         resc = model.transform(topd) if model.transform is not None else topd
     else:
         chunk = max(1, PLAIN_CHUNK_BYTES // (4 * N * N))
@@ -137,7 +139,7 @@ def _rebuild_thresh(model, topd_row: torch.Tensor) -> float:
     loop takes it after a thrash span (``_rebuild_thresh``); the drift test
     compares in float32 all the same."""
     buf, cut = model.host_buffer, model.host_cutoff
-    kth = topd_row[-1].cpu().numpy()
+    kth = trace.to_host(topd_row[-1], "verlet_thresh").numpy()
     cover = np.where(kth < 1.0e5, kth, np.float32(cut + buf))
     margin = float(cover.min()) - cut
     return float(np.clip(margin / 2.0, buf / 16.0, buf / 2.0))
@@ -178,8 +180,8 @@ def topk_tables_verlet(model, positions_block: torch.Tensor, precompute_law: boo
     seg = np.zeros(B, np.int64)
 
     def over_of(ref, thresh):
-        t = torch.tensor(np.float32(thresh), device=dev)
-        return _drift_over(model, pos, ref, t).cpu().numpy()
+        t = trace.to_device(torch.tensor(np.float32(thresh)), dev, "verlet_thresh_h2d")
+        return trace.to_host(_drift_over(model, pos, ref, t), "verlet_drift").numpy()
 
     def rebuild(f):
         """Lists at frame f; (threshold, drift flags) in one fetch."""
@@ -190,7 +192,8 @@ def topk_tables_verlet(model, positions_block: torch.Tensor, precompute_law: boo
         seg[f:] = len(rows_i) - 1
         thresh = _thresh_of(model, topd[0])
         flags = _drift_over(model, pos, pos[f], thresh)
-        packed = torch.cat([flags.to(torch.float32), thresh[None]]).cpu().numpy()
+        packed = trace.to_host(torch.cat([flags.to(torch.float32), thresh[None]]),
+                               "verlet_rebuild").numpy()
         return float(packed[-1]), packed[:-1] > 0.5
 
     def rebuild_span(f, hi):
@@ -250,7 +253,7 @@ def topk_tables_verlet(model, positions_block: torch.Tensor, precompute_law: boo
         last_rb = float(af)
         start = f + 1
 
-    seg_t = torch.from_numpy(seg).to(dev)
+    seg_t = trace.to_device(torch.from_numpy(seg), dev, "verlet_segments")
     topi = torch.stack(rows_i)[seg_t]  # [B, K, N]
     valid = torch.stack(rows_v)[seg_t]
     flat = topi.long() + torch.arange(B, device=dev)[:, None, None] * N
@@ -654,23 +657,25 @@ def run_block_topk(model, ens, frames_positions: torch.Tensor, frame0: int, *,
     rep = ens.replicas
     positions = frames_positions.to(torch.float32)
     blend = has_blend(model)
-    if reuse:
-        topd, topi, resc, carry, rebuilt = topk_tables_verlet(
-            model, positions, not blend, ens.nbr_carry, int(frame0))
-        topk_tables_verlet.rebuild_frames += int(rebuilt.sum())
-    else:
-        topd, topi, resc = topk_tables(model, positions, precompute_law=not blend)
+    with trace.span("kmc.stage1"):
+        if reuse:
+            topd, topi, resc, carry, rebuilt = topk_tables_verlet(
+                model, positions, not blend, ens.nbr_carry, int(frame0))
+            topk_tables_verlet.rebuild_frames += int(rebuilt.sum())
+        else:
+            topd, topi, resc = topk_tables(model, positions, precompute_law=not blend)
     labels = rep.proton_of_site.to(torch.float32)
-    out = topk_sweep(
-        positions, topd, topi, resc, ens.prev_pos, ens.site_disp, rep.occ,
-        labels, rep.site_of_proton, rep.t_last_jump,
-        entry_tlast_site(rep.occ, labels, rep.t_last_jump), rep.disp_base,
-        rep.clock.u_remaining, rep.clock.event_count, law_params8(model),
-        int(frame0), model.geometry, int(tile_offset),
-        orthorhombic=model.cell.orthorhombic, kind=ks.law_kind(model.law),
-        tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
-        blend=blend, **kss.stats_kwargs(rep, hist_range),
-    )
+    with trace.span("kmc.loop"):
+        out = topk_sweep(
+            positions, topd, topi, resc, ens.prev_pos, ens.site_disp, rep.occ,
+            labels, rep.site_of_proton, rep.t_last_jump,
+            entry_tlast_site(rep.occ, labels, rep.t_last_jump), rep.disp_base,
+            rep.clock.u_remaining, rep.clock.event_count, law_params8(model),
+            int(frame0), model.geometry, int(tile_offset),
+            orthorhombic=model.cell.orthorhombic, kind=ks.law_kind(model.law),
+            tile=tile, max_events=max_events, dt=float(dt), seed=int(seed),
+            blend=blend, **kss.stats_kwargs(rep, hist_range),
+        )
     if reuse:
         out["nbr_carry"] = carry
     return out

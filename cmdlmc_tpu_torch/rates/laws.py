@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from cmdlmc_tpu_torch.core.cell import sqrt32
+from cmdlmc_tpu_torch.utils import trace
 
 KB_EV_PER_K = 8.617333262e-5  # Boltzmann constant, eV / K
 
@@ -77,7 +78,8 @@ class ActivationEnergy(_Law):
         energy = self.a * dd / sqrt32(self.b + 1.0 / (safe * safe))
         energy = torch.clamp(energy, min=0.0)
         # k_B T in float32 arithmetic, as the JAX law computes it
-        kt = torch.tensor(KB_EV_PER_K, dtype=torch.float32, device=self.T.device) * self.T
+        kt = trace.to_device(torch.tensor(KB_EV_PER_K, dtype=torch.float32),
+                             self.T.device, "law_constant") * self.T
         return self.A * torch.exp(-energy / kt)
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from cmdlmc_tpu_torch.ops import threefry
+from cmdlmc_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -178,7 +179,7 @@ class CheckpointWriter:
                     snap = _map_tensors(snap, lambda t: torch.empty(
                         t.shape, dtype=t.dtype, pin_memory=True).copy_(
                             t, non_blocking=True))
-                side.synchronize()
+                trace.synchronize("ckpt_write", side)
             arrays = checkpoint_arrays(snap, keys, next_frame, meta)
             del snap
             write_arrays(self.path, arrays, self.compress)
