@@ -43,7 +43,11 @@ nonzero without the final ``ok`` line:
    bound; this plan's kept pairs), and K6 and K5 timed in turns from 162 to
    9216 sites (the route sweep); at every K5 shape here and in 9
    the tables equal the K5 before its cell route bit for bit
-   (PARENT_K5_DIGESTS, the SHA-256 recorded from it);
+   (PARENT_K5_DIGESTS, the SHA-256 recorded from it); the Verlet schedule
+   kernel against its plain version bit for bit at the 2x2x2 supercell's
+   launch [72, 1152] (no carry, a carry, a thrash window opening and
+   resumed, a triclinic cell), timed there beside the all-frame tables
+   stage 1 builds before it;
 8. K4 (top-K event loop) against its plain version: TopKPairRates k=8 and
    HydroniumRates k=4 (ReLU, relaxation time 20, the blend in the loop) at
    R=4096, B=100, N=144; law kinds 1-3, a triclinic cell, 16 events a frame
@@ -1972,6 +1976,115 @@ def phase_k6(dev, libs=None):
     return result
 
 
+# the benchmark's 2x2x2 supercell (supercell_x2_r4096): bench.py's cell
+# replicated twice an axis, and its mean launch of the Verlet path
+X2_SITES, X2_BOX, X2_LAUNCH = N_SITES * 8, BOX * 2, 72
+
+
+def phase_verlet_schedule(dev):
+    """The Verlet schedule kernel (csrc/verlet_schedule.cu) against its
+    plain version (verlet_schedule_reference on the CPU) bit for bit: list
+    rows, rebuild frames and the new carry's scalars, on the same card-built
+    tables and carry, at the 2x2x2 supercell's launch [72, 1152], k=8: a
+    block with no carry (a walk of SC_DRIFT), the next block from the
+    card's carry, a block whose drift quickens so that a thrash window
+    opens inside it, the block after it resuming the window, and a
+    triclinic cell of 1152 sites (the 27-image drift). Timed (CUDA events
+    per call and device time from the profiler) on the carried block and
+    the thrash block; beside it the all-frame tables that stage 1 now
+    builds before it, K6 at [72, 1152] against one frame [1, 1152], and the
+    triclinic cell's plain tables at [72, 1152]."""
+    import numpy as np
+    import torch
+
+    from cmdlmc_tpu_torch.core.cell import Cell
+    from cmdlmc_tpu_torch.ops import topk_sweep as ts
+    from cmdlmc_tpu_torch.rates.laws import Fermi
+    from cmdlmc_tpu_torch.topo.models import TopKPairRates
+
+    n, b = X2_SITES, X2_LAUNCH
+    tri = tuple(tuple(2 * x for x in v) for v in TRICLINIC_VECTORS)
+
+    def model(device, triclinic=False):
+        cell = (Cell.triclinic(tri, device=device) if triclinic
+                else Cell.cubic([X2_BOX] * 3, device=device))
+        return TopKPairRates(cell, Fermi(a=FERMI[0], b=FERMI[1], c=FERMI[2]).to(device), CUTOFF, BUFFER, k=TOPK_K)
+
+    walk = _walk_block(n, 2 * b, X2_BOX, seed=0)
+    # the same walk, its steps 12x larger from frame 24 on: rebuilds on
+    # successive frames open a thrash window
+    fast = walk.copy()
+    fast[24:] += 11.0 * (walk[24:] - walk[23:24])
+    rng = np.random.RandomState(1)
+    tri_base = rng.uniform(0, 1, size=(n, 3)) @ np.asarray(tri)
+    tri_walk = (tri_base[None] + np.cumsum(rng.normal(scale=0.006, size=(b, n, 3)), axis=0))
+    cases = (("fresh", walk[:b], False, 100, None), ("carried", walk[b:], False, 100 + b, 0),
+             ("thrash opens", fast[:b], False, 100, None),
+             ("thrash resumed", fast[b:], False, 100 + b, 2),
+             ("triclinic", tri_walk.astype(np.float32), True, 0, None))
+    carries, timed = [], {}
+    for label, block, triclinic, frame0, after in cases:
+        mc, md = model("cpu", triclinic), model(dev, triclinic)
+        pd = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+        carry = None if after is None else carries[after]
+        topd = ts.topk_tables(md, pd, precompute_law=False)[0]
+        rows, rebuilt, sched = ts.verlet_schedule(md, pd, topd, carry, frame0)
+        want = ts.verlet_schedule_reference(mc, pd.cpu(), topd.cpu(),
+                                            None if carry is None else carry.to("cpu"),
+                                            frame0)
+        same = (torch.equal(rows.cpu(), want[0])
+                and np.array_equal(torch.as_tensor(rebuilt).cpu().numpy(), want[1])
+                and torch.equal(sched.cpu().view(torch.int64), want[2].view(torch.int64)))
+        frames = [int(f) for f in np.nonzero(want[1])[0]]
+        say(f"[verlet] {label} [{b},{n}] frame0={frame0}: rebuilds at {frames}; the "
+            f"kernel's rows, rebuild frames and carry (thresh {want[2][0].item():.9g}, "
+            f"last rebuild {want[2][1].item():.0f}, thrash until {want[2][2].item():.0f}) "
+            f"{'equal' if same else 'DIFFER FROM'} the plain version's")
+        if not same:
+            raise AssertionError(f"verlet schedule {label}: the kernel differs from its "
+                                 f"plain version")
+        if label.startswith("thrash opens") and not want[2][2].item() > frame0 + 24:
+            raise AssertionError("verlet schedule: the thrash block opened no window")
+        carries.append(ts.topk_tables_verlet(md, pd, True, carry, frame0)[3])
+        if label in ("carried", "thrash opens"):
+            def call(md=md, pd=pd, topd=topd, carry=carry, frame0=frame0):
+                return ts.verlet_schedule(md, pd, topd, carry, frame0)
+
+            args = (mc, pd.cpu(), topd.cpu(), None if carry is None else carry.to("cpu"),
+                    frame0)
+            ts.verlet_schedule_reference(*args)  # warm
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ts.verlet_schedule_reference(*args)
+            plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+            timed[label] = (cuda_ms(call, reps=50)[0],
+                            device_ms(call, names=("verlet_schedule",)), plain_ms,
+                            len(frames))
+    # bytes: the positions, the K-th rows and the carry's reference once;
+    # operations: one minimum-image drift (PAIRWISE_OPS) per (frame, site)
+    b_ = bound(PAIRWISE_OPS * b * n, 4.0 * (b * n * 3 + b * n + n * 3))
+    for label, (ms, dev_ms, plain_ms, k) in timed.items():
+        say(f"[verlet] {label} [{b},{n}] ({k} rebuild frames): {ms:.4f} ms per call (CUDA "
+            f"events), {dev_ms:.4f} ms on the device (profiler); plain on the host "
+            f"{plain_ms:.2f} ms; bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+    pos = torch.from_numpy(walk[:b]).to(dev)
+    tables = {}
+    for label, md, p in (("K6 [1,1152]", model(dev), pos[:1]),
+                         (f"K6 [{b},1152]", model(dev), pos),
+                         (f"triclinic plain [{b},1152]", model(dev, True),
+                          torch.from_numpy(tri_walk.astype(np.float32)).to(dev))):
+        def build_tables(md=md, p=p):
+            return ts.topk_tables(md, p, precompute_law=False)
+
+        tables[label] = (cuda_ms(build_tables, reps=10)[0], device_ms(build_tables))
+    say("[verlet] stage 1's tables before the kernel: " + "; ".join(
+        f"{label} {ms:.4f} ms per call, {dev_ms:.4f} ms on the device"
+        for label, (ms, dev_ms) in tables.items()))
+    ms, _, plain_ms, _ = timed["carried"]
+    # no PyTorch call walks the schedule
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None}
+
+
 # the sites of the route sweep: bench.py's density (boxes 14.5 (N / 144)^(1/3)),
 # from the fewest sites with 3 bins of cutoff + buffer an axis (162; 160 is
 # the first) to 11 bins
@@ -2973,7 +3086,8 @@ def _counters():
             "pairwise_cubic": pairwise_cubic, "kmc_sweep": ks.kmc_sweep,
             "topk_sweep": ts.topk_sweep, "knn_tables": knn_block_tables,
             "knn_sparse": knn_sparse_tables, "device_plan": device_plan,
-            "water_sweep": ws.water_sweep, "threefry": keyed_hash}
+            "water_sweep": ws.water_sweep, "threefry": keyed_hash,
+            "verlet_schedule": ts.verlet_schedule}
 
 
 def _small_cuda_vs_cpu(label, cfg, scan=None):
@@ -3206,9 +3320,10 @@ def _drive_statistics(card: str):
 
 
 def _drive_box4(card: str):
-    """The supercell deployment end to end: K4 and K6 launch (K6 at the
-    rebuilds of Verlet candidate reuse, which the auto rule turns on), the
-    dense kernels do not; prints the rebuild frames and K5's launches."""
+    """The supercell deployment end to end: K4 and K6 launch (K6 over every
+    frame of each launch, the schedule kernel of Verlet candidate reuse,
+    which the auto rule turns on, once a launch), the dense kernels do not;
+    prints the rebuild frames and K5's launches."""
     from cmdlmc_tpu_torch.ops import topk_sweep as ts
 
     cfg = write_inputs(WORK, frames=512, replicas=SC_REPLICAS, topk="box4")
@@ -3216,20 +3331,20 @@ def _drive_box4(card: str):
         raise AssertionError(f"{BOX4}: the config must leave nbr_reuse at its default")
     ts.topk_tables_verlet.rebuild_frames = 0
     launches = _drive(BOX4, cfg, card, 512, SC_REPLICAS,
-                      expect=("topk_sweep", "knn_sparse", "device_plan"),
+                      expect=("topk_sweep", "knn_sparse", "device_plan", "verlet_schedule"),
                       refuse=("kmc_sweep_streamed", "pairwise_cubic", "kmc_sweep",
                               "knn_tables"),
                       n_sites=BX_SITES, protons=BX_PROTONS)
-    rebuilds = ts.topk_tables_verlet.rebuild_frames
+    rebuilds = int(ts.topk_tables_verlet.rebuild_frames)
     say(f"[e2e] {BOX4}: {rebuilds} rebuild frames of 512, knn_sparse launches "
         f"{launches['knn_sparse']} (each over a plan built on the card: "
         f"{launches['device_plan']}), knn_tables launches {launches['knn_tables']}")
     if not 0 < rebuilds < 512:
         raise AssertionError(f"{BOX4}: Verlet reuse rebuilt {rebuilds} of 512 frames")
-    if not 0 < launches["knn_sparse"] <= rebuilds \
-            or launches["device_plan"] != launches["knn_sparse"]:
-        raise AssertionError(f"{BOX4}: K6 and its plan must launch once per rebuild "
-                             f"build, got {launches}")
+    if not 0 < launches["knn_sparse"] == launches["device_plan"] \
+            == launches["verlet_schedule"] == launches["topk_sweep"]:
+        raise AssertionError(f"{BOX4}: K6, its plan and the schedule kernel must launch "
+                             f"once a K4 launch, got {launches}")
     return launches
 
 
@@ -4485,6 +4600,7 @@ def main() -> int:
     k3 = phase_k3(dev, libs)
     k5 = phase_k5(dev, libs)
     k6 = phase_k6(dev, libs)
+    vs = phase_verlet_schedule(dev)
     k4 = phase_k4(dev, libs)
     k7 = phase_k7(dev, libs)
     paths = phase_end_to_end(card)
@@ -4500,7 +4616,8 @@ def main() -> int:
     # each kernel's launches in the end-to-end run of its own path: K1 and
     # K2 on the main path (R=16384), K3 on the in-kernel route (R=1024), K4
     # and K5 on the top-K path (R=4096), K6 on the box x4 supercell, K7 on
-    # the water path (N=216, R=8192)
+    # the water path (N=216, R=8192), the Verlet schedule kernel on the box
+    # x4 supercell
     main_path, inkernel_path = paths["dense R=16384"], paths["dense R=1024"]
     topk_path = paths[f"topk R={TOPK_REPLICAS}"]
     kernels = [
@@ -4537,6 +4654,11 @@ def main() -> int:
          "replaces": "none (port-only): the threefry hash of jax.random in the JAX "
                      "scan engine, cmdlmc_tpu/engine/clock.py:70-75",
          "launches": paths[DENSE_SCAN]["threefry"], **kernel2},
+        {"name": "verlet_schedule", "route": "cuda",
+         "source": "cmdlmc_tpu_torch/csrc/verlet_schedule.cu",
+         "replaces": "none (port-only): the host-loop Verlet schedule of "
+                     "cmdlmc_tpu/ops/topk_sweep.py:635-840",
+         "launches": paths[BOX4]["verlet_schedule"], **vs},
     ]
     say(f"[e2e] launches by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": kernels}))

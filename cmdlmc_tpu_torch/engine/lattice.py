@@ -34,6 +34,7 @@ from cmdlmc_tpu_torch.engine import clock as kmc_clock
 from cmdlmc_tpu_torch.engine.clock import ClockState
 from cmdlmc_tpu_torch.ops import threefry
 from cmdlmc_tpu_torch.topo.models import DenseShared, Frame
+from cmdlmc_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -80,7 +81,7 @@ class ReplicaState:
         })
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False, repr=False)
 class NeighborCarry:
     """Frozen K-nearest candidate lists of Verlet candidate reuse
     (``ops/topk_sweep.py::topk_tables_verlet``), carried from block to block.
@@ -93,8 +94,15 @@ class NeighborCarry:
     last_rebuild         absolute frame of the last rebuild
     thrash_until         absolute frame up to which the thrash guard rebuilds
                          every frame
-    The three floats live on the host, so the rebuild schedule is a function
-    of the carry and the absolute frames alone."""
+    The rebuild schedule is a function of the carry and the absolute frames
+    alone. Its three scalars are held as 0-d float64 tensors on ref_pos's
+    device (:meth:`scalars`), where the schedule kernel reads and writes
+    them; read as attributes they are Python floats, fetched through a
+    marked sync (``verlet_carry``). A float given to the constructor goes
+    to the device the same way. Neither ``==`` nor ``repr`` is generated,
+    so no incidental comparison or print waits for the card; the held
+    tensors are read by :meth:`scalars` (and ``utils/checkpoint.py``'s
+    field walk, through ``vars``)."""
 
     ref_pos: torch.Tensor
     ref_topi: torch.Tensor
@@ -103,10 +111,34 @@ class NeighborCarry:
     last_rebuild: float = -1.0e18
     thrash_until: float = 0.0
 
+    def scalars(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(thresh, last_rebuild, thrash_until) as held: 0-d float64 tensors."""
+        return tuple(vars(self)[name] for name in SCHEDULE_SCALARS)
+
     def to(self, device) -> "NeighborCarry":
-        return dataclasses.replace(self, ref_pos=self.ref_pos.to(device),
-                                   ref_topi=self.ref_topi.to(device),
-                                   ref_valid=self.ref_valid.to(device))
+        return NeighborCarry(*(vars(self)[f.name].to(device)
+                               for f in dataclasses.fields(self)))
+
+
+SCHEDULE_SCALARS = ("thresh", "last_rebuild", "thrash_until")
+
+
+def _schedule_scalar(name: str) -> property:
+    def get(self) -> float:
+        return float(trace.to_host(vars(self)[name], "verlet_carry"))
+
+    def put(self, value) -> None:
+        if not isinstance(value, torch.Tensor):
+            value = trace.to_device(torch.tensor(float(value), dtype=torch.float64),
+                                    self.ref_pos.device, "verlet_carry")
+        vars(self)[name] = value
+
+    return property(get, put)
+
+
+for _name in SCHEDULE_SCALARS:
+    setattr(NeighborCarry, _name, _schedule_scalar(_name))
+del _name
 
 
 @dataclasses.dataclass

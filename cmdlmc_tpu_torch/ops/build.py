@@ -68,6 +68,8 @@ _SIGNATURES = {
         [_P] * 20 + [_LL] + [_I] * 12 + [_F, _F, ctypes.c_uint32]
         + [_PF] * 2 + _STATS + [_P, _I]
     ),
+    "cmdlmc_verlet_schedule": [_P] * 6 + [_I] * 3 + [_LL] + [_F] * 3 + [_I, _PF]
+    + [_P] * 4 + [_I],
     "cmdlmc_water_sweep": (
         [_P] * 20 + [_I] * 14 + [_F] * 5 + [ctypes.c_uint32, ctypes.POINTER(_F), _P, _I]
     ),

@@ -107,42 +107,35 @@ def topk_tables(model, positions_block: torch.Tensor, precompute_law: bool):
 
 # -- Verlet candidate reuse ---------------------------------------------------
 #
-# The one host-loop schedule of the JAX package's topk_tables_verlet
+# The schedule of the JAX package's topk_tables_verlet
 # (cmdlmc_tpu/ops/topk_sweep.py:719-840) with its per-frame gather epilogue
-# (_verlet_epilogue). Its device-resident scheduler and one-hot epilogue give
-# the same schedule and tables there and have no counterpart here.
+# (_verlet_epilogue). Stage 1 builds every frame's tables, and the schedule
+# is walked over their K-th-neighbour rows where the tensors lie: on the card
+# by the kernel csrc/verlet_schedule.cu, on the stream with no host value in
+# between; on the CPU by its plain version, verlet_schedule_reference. The
+# two agree bit for bit.
 
 # Thrash guard: a drift-triggered rebuild within _THRASH_GAP frames of the
 # previous one rebuilds every frame until the absolute frame reaches the
 # trigger + _THRASH_SPAN, then probes the drift guard again. Both bounds are
 # absolute frames and ride in the carry, so the schedule does not depend on
-# how the frames are cut into blocks.
+# how the frames are cut into blocks. (csrc/verlet_schedule.cu has both.)
 _THRASH_GAP = 4
 _THRASH_SPAN = 128
 
 
-def _thresh_of(model, topd_row: torch.Tensor) -> torch.Tensor:
-    """The drift threshold for which lists frozen from ``topd_row`` [K, N]
-    (a rebuild's raw distances) still cover every pair within the cutoff,
-    float32 on the device (the JAX package's ``_thresh_of``): half the
+def _thresh_of(model, kth: np.ndarray, dtype) -> float:
+    """The drift threshold for which lists frozen at a rebuild whose K-th
+    distances are ``kth`` [N] still cover every pair within the cutoff, in
+    ``dtype``: the JAX package's ``_thresh_of`` in float32 after a single
+    rebuild, its ``_rebuild_thresh`` in float64 after a thrash span. Half the
     margin of the smallest covering radius (the K-th distance, or cutoff +
     buffer where fewer than K neighbors are in range) over the cutoff,
     clipped to [buffer / 16, buffer / 2]."""
-    kth = topd_row[-1]
-    cover = torch.where(kth < 1.0e5, kth, model.cutoff + model.buffer)
-    margin = cover.min() - model.cutoff
-    return torch.clamp(margin / 2.0, model.buffer / 16.0, model.buffer / 2.0)
-
-
-def _rebuild_thresh(model, topd_row: torch.Tensor) -> float:
-    """:func:`_thresh_of` in float64 on the host, as the JAX package's host
-    loop takes it after a thrash span (``_rebuild_thresh``); the drift test
-    compares in float32 all the same."""
-    buf, cut = model.host_buffer, model.host_cutoff
-    kth = trace.to_host(topd_row[-1], "verlet_thresh").numpy()
-    cover = np.where(kth < 1.0e5, kth, np.float32(cut + buf))
-    margin = float(cover.min()) - cut
-    return float(np.clip(margin / 2.0, buf / 16.0, buf / 2.0))
+    cover = np.where(kth < 1.0e5, kth, np.float32(model.cutbuf))
+    margin = dtype(cover.min()) - dtype(model.host_cutoff)
+    buf = dtype(model.host_buffer)
+    return float(np.clip(margin / dtype(2), buf / dtype(16), buf / dtype(2)))
 
 
 def _drift_over(model, pos: torch.Tensor, ref: torch.Tensor,
@@ -153,6 +146,115 @@ def _drift_over(model, pos: torch.Tensor, ref: torch.Tensor,
     d = minimum_image(model.cell, pos - ref[None])
     d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
     return sqrt32(d2.max(dim=1).values) > thresh
+
+
+def verlet_schedule_reference(model, pos: torch.Tensor, topd: torch.Tensor,
+                              carry: NeighborCarry | None, frame0: int):
+    """Plain version of the schedule kernel (:func:`verlet_schedule`) for
+    CPU tensors: the JAX package's host loop over the block's positions
+    [B, N, 3] (float32) and every frame's tables ``topd`` [B, K, N]. From
+    the carry (or a rebuild at frame 0 without one), the first frame whose
+    drift passes the threshold rebuilds its lists, or opens a thrash window
+    within ``_THRASH_GAP`` frames of the last rebuild; a block begun inside
+    a carried window finishes it first.
+
+    Returns (rows, rebuilt, sched): ``rows`` int64 [B], the row of each
+    frame's frozen lists in the stack of the carry's lists (where there is a
+    carry) and every frame's, the latest rebuild at or before the frame;
+    ``rebuilt`` [B] bool (numpy), the frames whose lists were rebuilt;
+    ``sched`` float64 [3], the new carry's (thresh, last_rebuild,
+    thrash_until)."""
+    B = pos.shape[0]
+    kth = topd[:, -1, :].numpy()
+    rebuilt = np.zeros(B, bool)
+
+    def over_from(ref, thresh):
+        """[B] drift flags against frame ``ref`` (-1: the carry's)."""
+        ref_pos = carry.ref_pos if ref < 0 else pos[ref]
+        return _drift_over(model, pos, ref_pos, torch.tensor(np.float32(thresh))).numpy()
+
+    def rebuild(f):
+        rebuilt[f] = True
+        return f, _thresh_of(model, kth[f], np.float32)
+
+    def rebuild_span(f, hi):
+        rebuilt[f:hi] = True
+        return hi - 1, _thresh_of(model, kth[hi - 1], np.float64)
+
+    if carry is not None:
+        thresh, last_rb, thrash_until = (float(t) for t in carry.scalars())
+        ref, start = -1, 0
+    else:
+        thrash_until = 0.0
+        ref, thresh = rebuild(0)
+        last_rb, start = float(frame0), 1
+    if frame0 + start < thrash_until:
+        # resume a thrash window begun in an earlier block
+        hi = min(B, int(thrash_until) - frame0)
+        ref, thresh = rebuild_span(start, hi)
+        last_rb, start = float(frame0 + hi - 1), hi
+    while start < B:
+        beyond = np.nonzero(over_from(ref, thresh)[start:])[0]
+        if beyond.size == 0:
+            break
+        f = start + int(beyond[0])
+        af = frame0 + f
+        # a negative gap is a replay of earlier frames against a newer
+        # carry, not a thrash
+        if 0 <= af - last_rb <= _THRASH_GAP:
+            thrash_until = float(af + _THRASH_SPAN)
+            hi = min(B, int(thrash_until) - frame0)
+            ref, thresh = rebuild_span(f, hi)
+            last_rb, start = float(frame0 + hi - 1), hi
+        else:
+            ref, thresh = rebuild(f)
+            last_rb, start = float(af), f + 1
+    latest = np.maximum.accumulate(np.where(rebuilt, np.arange(B), -1))
+    rows = torch.from_numpy(latest + int(carry is not None))
+    sched = torch.tensor([thresh, last_rb, thrash_until], dtype=torch.float64)
+    return rows, rebuilt, sched
+
+
+def verlet_schedule(model, pos: torch.Tensor, topd: torch.Tensor,
+                    carry: NeighborCarry | None, frame0: int):
+    """The rebuild schedule of Verlet candidate reuse: on the card the
+    kernel ``csrc/verlet_schedule.cu``, one launch on the stream that reads
+    the positions, the K-th rows of ``topd`` and the carry's scalars where
+    they lie, so the host waits for nothing; for CPU tensors
+    :func:`verlet_schedule_reference`. Returns (rows, rebuilt, sched) as
+    the plain version does, here all on the card (``rebuilt`` a bool
+    tensor)."""
+    if pos.device.type != "cuda":
+        return verlet_schedule_reference(model, pos, topd, carry, frame0)
+    B, N, _ = pos.shape
+    dev = pos.device
+    if (pos.dtype != torch.float32 or topd.dtype != torch.float32 or topd.dim() != 3
+            or topd.shape[0] != B or topd.shape[2] != N or topd.device != dev):
+        raise ValueError(f"verlet_schedule: positions {tuple(pos.shape)} {pos.dtype} and "
+                         f"tables {tuple(topd.shape)} {topd.dtype} on {topd.device}")
+    pos, topd = pos.contiguous(), topd.contiguous()
+    rows = torch.empty(B, dtype=torch.int64, device=dev)
+    rebuilt = torch.empty(B, dtype=torch.bool, device=dev)
+    sched = torch.empty(3, dtype=torch.float64, device=dev)
+    held = [None] * 4
+    if carry is not None:
+        held = [carry.ref_pos.to(dev, torch.float32).contiguous(),
+                *(t.to(dev, torch.float64) for t in carry.scalars())]
+        if held[0].shape != (N, 3):
+            raise ValueError(f"verlet_schedule: carry ref_pos {tuple(held[0].shape)}, "
+                             f"frames of {N} sites")
+    ptrs = [None if t is None else t.data_ptr() for t in held]
+    verlet_schedule.launches += 1
+    build.check(build.library().cmdlmc_verlet_schedule(
+        pos.data_ptr(), ptrs[0], topd.data_ptr(), *ptrs[1:], B, N, topd.shape[1],
+        int(frame0), model.host_cutoff, model.host_buffer, model.cutbuf,
+        int(model.cell.orthorhombic), (ctypes.c_float * 18)(*model.geometry),
+        rows.data_ptr(), rebuilt.data_ptr(), sched.data_ptr(), build.stream_of(pos),
+        dev.index or 0), "verlet_schedule kernel")
+    return rows, rebuilt, sched
+
+
+verlet_schedule.launches = 0
 
 
 def topk_tables_verlet(model, positions_block: torch.Tensor, precompute_law: bool,
@@ -166,104 +268,34 @@ def topk_tables_verlet(model, positions_block: torch.Tensor, precompute_law: boo
     ``carry`` is the previous block's :class:`NeighborCarry` (None rebuilds
     at the block's first frame); ``frame0`` is the block's absolute frame.
     The schedule is a function of (carry, frame0, frames), so results do not
-    depend on how the frames are cut into blocks. One small fetch per
-    segment: the drift flags, with the threshold after a rebuild.
+    depend on how the frames are cut into blocks. Every frame's tables are
+    built in one stage-1 call and :func:`verlet_schedule` picks each frame's
+    lists from them: on the card no value reaches the host.
 
     Returns (topd, topi, resc, new_carry, rebuilt): the tables [B, K, N] as
-    :func:`topk_tables` gives them and ``rebuilt`` [B] bool (numpy), the
-    frames whose lists were rebuilt."""
+    :func:`topk_tables` gives them and ``rebuilt`` [B] bool, the frames
+    whose lists were rebuilt (a device tensor on the card, numpy from the
+    plain version)."""
     pos = positions_block.to(torch.float32)
     B, N, _ = pos.shape
     dev = pos.device
-    rows_i, rows_v = [], []
-    rebuilt = np.zeros(B, bool)
-    seg = np.zeros(B, np.int64)
-
-    def over_of(ref, thresh):
-        t = trace.to_device(torch.tensor(np.float32(thresh)), dev, "verlet_thresh_h2d")
-        return trace.to_host(_drift_over(model, pos, ref, t), "verlet_drift").numpy()
-
-    def rebuild(f):
-        """Lists at frame f; (threshold, drift flags) in one fetch."""
-        topd, topi, _ = topk_tables(model, pos[f:f + 1], precompute_law=False)
-        rows_i.append(topi[0])
-        rows_v.append(topd[0] < 1.0e5)
-        rebuilt[f] = True
-        seg[f:] = len(rows_i) - 1
-        thresh = _thresh_of(model, topd[0])
-        flags = _drift_over(model, pos, pos[f], thresh)
-        packed = trace.to_host(torch.cat([flags.to(torch.float32), thresh[None]]),
-                               "verlet_rebuild").numpy()
-        return float(packed[-1]), packed[:-1] > 0.5
-
-    def rebuild_span(f, hi):
-        """Lists at every frame of [f, hi) in one build; the threshold of
-        the last."""
-        topd, topi, _ = topk_tables(model, pos[f:hi], precompute_law=False)
-        for j in range(hi - f):
-            rows_i.append(topi[j])
-            rows_v.append(topd[j] < 1.0e5)
-        rebuilt[f:hi] = True
-        seg[f:hi] = np.arange(len(rows_i) - (hi - f), len(rows_i))
-        seg[hi:] = len(rows_i) - 1
-        return _rebuild_thresh(model, topd[-1])
-
+    topd_all, topi_all, _ = topk_tables(model, pos, precompute_law=False)
+    rows, rebuilt, sched = verlet_schedule(model, pos, topd_all, carry, frame0)
+    lists_i, lists_v, refs = topi_all, topd_all < 1.0e5, pos
     if carry is not None:
-        rows_i.append(carry.ref_topi.to(dev))
-        rows_v.append(carry.ref_valid.to(dev))
-        ref = carry.ref_pos.to(dev)
-        thresh = float(carry.thresh)
-        last_rb = float(carry.last_rebuild)
-        thrash_until = float(carry.thrash_until)
-        start = 0
-        over = over_of(ref, thresh)
-    else:
-        thrash_until = 0.0
-        thresh, over = rebuild(0)
-        ref = pos[0]
-        last_rb = float(frame0)
-        start = 1
-    if frame0 + start < thrash_until:
-        # resume a thrash window begun in an earlier block
-        hi = min(B, int(thrash_until) - frame0)
-        thresh = rebuild_span(start, hi)
-        ref = pos[hi - 1]
-        last_rb = float(frame0 + hi - 1)
-        start = hi
-        over = over_of(ref, thresh)
-    while start < B:
-        beyond = np.nonzero(over[start:])[0]
-        if beyond.size == 0:
-            break
-        f = start + int(beyond[0])
-        af = frame0 + f
-        # a negative gap is a replay of earlier frames against a newer
-        # carry, not a thrash
-        if 0 <= af - last_rb <= _THRASH_GAP:
-            thrash_until = float(af + _THRASH_SPAN)
-            hi = min(B, int(thrash_until) - frame0)
-            thresh = rebuild_span(f, hi)
-            ref = pos[hi - 1]
-            last_rb = float(frame0 + hi - 1)
-            start = hi
-            over = over_of(ref, thresh)
-            continue
-        thresh, over = rebuild(f)
-        ref = pos[f]
-        last_rb = float(af)
-        start = f + 1
-
-    seg_t = trace.to_device(torch.from_numpy(seg), dev, "verlet_segments")
-    topi = torch.stack(rows_i)[seg_t]  # [B, K, N]
-    valid = torch.stack(rows_v)[seg_t]
+        lists_i = torch.cat([carry.ref_topi.to(dev)[None], lists_i])
+        lists_v = torch.cat([carry.ref_valid.to(dev)[None], lists_v])
+        refs = torch.cat([carry.ref_pos.to(dev)[None], pos])
+    topi = lists_i[rows]  # [B, K, N]
+    valid = lists_v[rows]
     flat = topi.long() + torch.arange(B, device=dev)[:, None, None] * N
     nbr = pos.reshape(B * N, 3)[flat]  # [B, K, N, 3]
     topd = distance(model.cell, pos[:, None, :, :], nbr)
     topd = torch.where(valid & (topd <= model.cutbuf), topd, BIG)
     resc = model.transform(topd) if model.transform is not None else topd
-    new_carry = NeighborCarry(ref_pos=ref, ref_topi=rows_i[-1], ref_valid=rows_v[-1],
-                              thresh=float(thresh), last_rebuild=float(last_rb),
-                              thrash_until=float(thrash_until))
+    new_carry = NeighborCarry(ref_pos=refs[rows[-1:]][0], ref_topi=topi[-1],
+                              ref_valid=valid[-1], thresh=sched[0],
+                              last_rebuild=sched[1], thrash_until=sched[2])
     return (topd, topi, _tables_epilogue(model, topd, resc, precompute_law),
             new_carry, rebuilt)
 
@@ -661,7 +693,9 @@ def run_block_topk(model, ens, frames_positions: torch.Tensor, frame0: int, *,
         if reuse:
             topd, topi, resc, carry, rebuilt = topk_tables_verlet(
                 model, positions, not blend, ens.nbr_carry, int(frame0))
-            topk_tables_verlet.rebuild_frames += int(rebuilt.sum())
+            # a device tensor on the card: read with the counters, not here
+            topk_tables_verlet.rebuild_frames = (
+                topk_tables_verlet.rebuild_frames + rebuilt.sum())
         else:
             topd, topi, resc = topk_tables(model, positions, precompute_law=not blend)
     labels = rep.proton_of_site.to(torch.float32)

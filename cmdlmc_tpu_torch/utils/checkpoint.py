@@ -44,11 +44,18 @@ logger = logging.getLogger(__name__)
 _META_FIELDS = ("thresh", "last_rebuild", "thrash_until")
 
 
+def _held(obj, name: str):
+    """A dataclass field as the object holds it: NeighborCarry keeps its
+    schedule scalars as device tensors behind properties that fetch them,
+    so the field walks below read ``vars`` and make no sync."""
+    return vars(obj)[name]
+
+
 def _map_tensors(obj, fn):
     """``obj`` with ``fn`` applied to every tensor of its (nested) fields."""
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
-            f.name: _map_tensors(getattr(obj, f.name), fn)
+            f.name: _map_tensors(_held(obj, f.name), fn)
             for f in dataclasses.fields(obj)})
     if isinstance(obj, torch.Tensor):
         return fn(obj)
@@ -60,7 +67,7 @@ def _flatten(prefix: str, obj, out: dict):
         return
     if dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
-            _flatten(f"{prefix}{f.name}.", getattr(obj, f.name), out)
+            _flatten(f"{prefix}{f.name}.", _held(obj, f.name), out)
     elif isinstance(obj, torch.Tensor):
         out[prefix.rstrip(".")] = obj.detach().cpu().numpy()
     else:

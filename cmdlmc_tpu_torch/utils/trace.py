@@ -30,7 +30,9 @@ increment under a lock): ``syncs.<site>`` for each blocking transfer,
 reader takes :func:`snapshot` before and after and subtracts
 (:func:`since`), so two runs in one process do not mix; the snapshot also
 reads the launch counters that live on the ops wrappers (``launches.<op>``)
-and ``topk_tables_verlet.rebuild_frames`` (``verlet.rebuild_frames``).
+and ``topk_tables_verlet.rebuild_frames`` (``verlet.rebuild_frames``, a sum
+kept on the device: reading it waits for the stream, so the snapshot is
+taken before and after a run, not inside it).
 :func:`block_clock` gives the time and frame count of the latest block
 emitted, for ``driver.py``'s ``# perf:`` line. The counters count on every
 device, so a CPU run shows the schedule of transfers the card runs.
@@ -97,13 +99,17 @@ def _op_counters() -> dict[str, int]:
     ops = (kmc_sweep_streamed.kmc_sweep_streamed, kmc_sweep.kmc_sweep,
            topk_sweep.topk_sweep, pairwise.pairwise_cubic,
            knn_tables.knn_block_tables, knn_sparse.knn_sparse_tables,
-           knn_sparse.device_plan, water_sweep.water_sweep, threefry.keyed_hash)
+           knn_sparse.device_plan, water_sweep.water_sweep, threefry.keyed_hash,
+           topk_sweep.verlet_schedule)
     # a wrapper set over an op from outside may not carry its counter
     out = {f"launches.{op.__name__}": int(op.launches) for op in ops
            if hasattr(op, "launches")}
     rebuilds = getattr(topk_sweep.topk_tables_verlet, "rebuild_frames", None)
     if rebuilds is not None:
-        out["verlet.rebuild_frames"] = int(rebuilds)
+        # summed on the device, so read here, where the counters are read,
+        # and nowhere on the launch path
+        with _sync_allowed():
+            out["verlet.rebuild_frames"] = int(rebuilds)
     return out
 
 

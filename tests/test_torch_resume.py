@@ -154,13 +154,30 @@ def test_topk_neighbor_carry_survives_resume(traj, tmp_path):
     """Top-K with Verlet candidate reuse: the carry (frozen lists, drift
     reference, rebuild schedule) crosses the checkpoint, and the resumed
     run is the straight run, lists and all."""
+    _carry_survives_resume(traj, tmp_path, 1)
+
+
+def test_verlet_supercell_carry_survives_resume(traj, tmp_path):
+    """The same as a 2x2x2 supercell (256 sites, the lists built on the
+    device plan's route): the checkpoint's schedule scalars read back as
+    the carry's floats, and the resumed run is the straight run."""
+    mid, saved = _carry_survives_resume(traj, tmp_path, 2)
+    assert [a.dtype for a in saved] == [np.float64] * 3
+    assert [float(a) for a in saved] == [mid.thresh, mid.last_rebuild, mid.thrash_until]
+
+
+def _carry_survives_resume(traj, tmp_path, mult):
+    """Runs straight and stopped at frame 40 and resumed; returns the carry
+    that crossed the checkpoint and its schedule scalars as saved."""
     topo = "max_neighbors = 8\n"
     reuse = "nbr_reuse = on\n"
-    full, final = _run_topk(traj, None, topo, reuse)
+    full, final = _run_topk(traj, None, topo, reuse, mult=mult)
     ckpt = tmp_path / "k.npz"
-    part1, mid = _run_topk(traj, ckpt, topo, reuse, sweeps=40)
+    part1, mid = _run_topk(traj, ckpt, topo, reuse, sweeps=40, mult=mult)
     assert mid.nbr_carry is not None
-    part2, resumed = _run_topk(traj, ckpt, topo, reuse)
+    with np.load(ckpt) as f:
+        saved = [f[f"state.nbr_carry.{n}"] for n in ("thresh", "last_rebuild", "thrash_until")]
+    part2, resumed = _run_topk(traj, ckpt, topo, reuse, mult=mult)
     assert part1 + part2 == full
     _same_state(resumed, final)
     a, b = resumed.nbr_carry, final.nbr_carry
@@ -168,12 +185,16 @@ def test_topk_neighbor_carry_survives_resume(traj, tmp_path):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert (a.thresh, a.last_rebuild, a.thrash_until) == (
         b.thresh, b.last_rebuild, b.thrash_until)
+    return mid.nbr_carry, saved
 
 
-def _run_topk(traj, ckpt, topo, reuse, sweeps=80):
+def _run_topk(traj, ckpt, topo, reuse, sweeps=80, mult=1):
     engine = reuse + (f"checkpoint_path = {ckpt}\n" if ckpt else "")
     text = INI.format(traj=traj, sweeps=sweeps, block=20, seed=1,
                       output="ObservablesOutput", topology=topo, engine=engine)
+    if mult > 1:
+        text = text.replace("9.0, 9.0, 9.0", f"9.0, 9.0, 9.0\nbox_multiplier = {mult}, {mult}, {mult}")
+        text = text.replace("lattice_size = 32", f"lattice_size = {32 * mult**3}")
     out = io.StringIO()
     sim = tdriver.run_from_config(io.StringIO(text), out=out, device="cpu")
     rows = [ln for ln in out.getvalue().splitlines() if ln and not ln.startswith("#")]

@@ -21,6 +21,7 @@ import torch
 from cmdlmc_tpu_torch.config.schema import load_config
 from cmdlmc_tpu_torch.driver import Simulation
 from cmdlmc_tpu_torch.io.xyz import write_xyz_frame
+from cmdlmc_tpu_torch.ops import topk_sweep as ts
 from cmdlmc_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
@@ -80,8 +81,6 @@ PARENTS = {
     "kmc.driver.post": {"kmc.block"},
     "kmc.sync.emit": {"kmc.driver.emit"}, "kmc.sync.init": {"kmc.block"},
     "kmc.sync.stream_h2d": {"kmc.stream.h2d"}, "kmc.sync.supercell_h2d": {"kmc.stream.h2d"},
-    "kmc.sync.verlet_thresh_h2d": {"kmc.stage1"}, "kmc.sync.verlet_drift": {"kmc.stage1"},
-    "kmc.sync.verlet_rebuild": {"kmc.stage1"}, "kmc.sync.verlet_segments": {"kmc.stage1"},
 }
 
 
@@ -155,9 +154,7 @@ def test_a_profiled_run_exports_the_spans_nested_as_documented(runs, kind):
     if kind == "dense":
         want |= {"kmc.driver.ckpt"}
     else:
-        want |= {"kmc.stage1.plan", "kmc.stage1.knn", "kmc.sync.supercell_h2d",
-                 "kmc.sync.verlet_drift", "kmc.sync.verlet_rebuild",
-                 "kmc.sync.verlet_segments"}
+        want |= {"kmc.stage1.plan", "kmc.stage1.knn", "kmc.sync.supercell_h2d"}
     assert want <= names <= set(PARENTS)
     for s in spans:
         assert _parent(s, spans) in PARENTS[s[0]], s
@@ -171,8 +168,8 @@ def test_a_profiled_run_exports_the_spans_nested_as_documented(runs, kind):
     main = {s[3] for s in spans if s[0] == "kmc.block"}
     reader = {s[3] for s in spans if s[0] == "kmc.stream.parse"}
     assert len(main) == len(reader) == 1 and main != reader
-    if kind == "verlet":  # the Verlet schedule's fetches inside stage 1
-        assert any(s[0].startswith("kmc.sync.") and _parent(s, spans) == "kmc.stage1"
+    # the Verlet schedule is decided on the device: stage 1 waits for nothing
+    assert not any(s[0].startswith("kmc.sync.") and _parent(s, spans) == "kmc.stage1"
                    for s in spans)
 
 
@@ -180,10 +177,10 @@ def test_a_profiled_run_exports_the_spans_nested_as_documented(runs, kind):
 def test_the_sync_counters_follow_the_transfer_schedule(runs, kind):
     """Three blocks: each block's rows fetched once, each block copied to
     the device once (and made a supercell there), one seeded start. Each
-    block's launches end at its print frames; the Verlet schedule (no thrash
-    window here) uploads the drift threshold and fetches the drift flags
-    once per launch that starts from a carry, fetches the flags and
-    threshold once per rebuild, and uploads the segments once per launch."""
+    block's launches end at its print frames; the Verlet schedule makes no
+    transfer (one schedule launch a K4 launch on the card, none of either
+    here) and rebuilds where the plain schedule over all the frames at once
+    does."""
     moved, sim = runs[kind]["moved"], runs[kind]["sim"]
     syncs = {k[len("syncs."):]: v for k, v in moved.items() if k.startswith("syncs.")}
     want = {"emit": 3, "stream_h2d": 3, "init": 1}
@@ -193,9 +190,11 @@ def test_the_sync_counters_follow_the_transfer_schedule(runs, kind):
     if kind == "verlet":
         rebuilds = moved["verlet.rebuild_frames"]
         assert 2 <= rebuilds < 3 * block
-        want.update(supercell_h2d=3, verlet_thresh_h2d=launches - 1,
-                    verlet_drift=launches - 1, verlet_rebuild=rebuilds,
-                    verlet_segments=launches)
+        pos = torch.cat([donors for _, donors, _ in sim._blocks()])
+        assert pos.shape[0] == 3 * block
+        assert rebuilds == ts.topk_tables_verlet(sim.model, pos, True, None, 0)[4].sum()
+        want.update(supercell_h2d=3)
+        assert moved.get("launches.verlet_schedule", 0) == moved.get("launches.topk_sweep", 0)
     assert syncs == want
     assert (moved["blocks"], moved["frames"]) == (3, 3 * block)
     launches = "launches.topk_sweep" if kind == "verlet" else "launches.kmc_sweep_streamed"
@@ -287,3 +286,6 @@ def test_every_sync_on_the_card_goes_through_the_marked_helper(tmp_path, kind):
     moved = trace.since(before)
     assert rows and moved["blocks"] == 2
     assert moved["syncs.emit"] == 2
+    if kind == "verlet":  # the schedule kernel, once a K4 launch; no Verlet sync
+        assert moved["launches.verlet_schedule"] == moved["launches.topk_sweep"] > 0
+        assert not [k for k in moved if k.startswith("syncs.verlet")]
